@@ -3,25 +3,37 @@
 
     python3 chip_smoke.py            # the full-size run (one GPU)
 
-Phases, one line each (any failure exits non-zero and prints no result):
+It imports psi_tpu_torch, torch, numpy and the standard library, and
+nothing of psi_tpu or jax. Phases, one or more lines each (any failure
+exits non-zero and prints no result):
 
  1. the card's name and power limit (nvidia-smi);
- 2. build the CUDA kernels from psi_tpu_torch/csrc (nvcc) and report the
-    time and whether psi_tpu's native host library loaded;
+ 2. build the CUDA kernels from psi_tpu_torch/csrc (nvcc, one process per
+    source) and, side by side, the port's native host library from
+    psi_tpu_torch/csrc/host (g++); both must load;
  3. generate the data from fixed seeds into a temporary directory: a
     bacterial-scale pan-genome graph (simulate.make_pangenome_graph,
     5 Mbp reference, a SNP or insertion bubble every ~250 bp) as GFA 1,
     and reads of random haplotypes (100 bp, 1% substitutions) as FASTQ;
- 4. each kernel against its plain PyTorch version on the card at the
-    main path's shapes (the 10 Mbp index of 2 paths and the first chunk's
-    2^19-slot frontier), bit-equal over all slots, with CUDA-event times;
-    the two-pass level route against the fused one; expand + locate time;
- 5. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
-    counters reset just before and read just after: the trie-level
+ 4. [kernels] each of the five kernels against its plain PyTorch version
+    on the card at the main path's shapes (the 10 Mbp index of 2 paths
+    and the first chunk's 2^19-slot frontier, every level), bit-equal
+    over all slots, with CUDA-event device times (a spin kernel queued
+    first), the enqueued time and the plain time, and each kernel's
+    bound from the bytes this run's inputs need; expand + locate time;
+ 5. [routes] on chunk 1's distinct keys, each level route through
+    `trie_search` (fused; two-pass with rank4_pair; two-pass with two
+    rank4 launches) and `backward_search_sorted` from the ftab frontier,
+    launch counters set to 0 just before each and read just after: the
+    leaf ranges of the three routes are equal, the counts of the
+    backward search equal the trie's, and each route launched its
+    kernels once per level (rank: twice per step);
+ 6. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
+    counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level;
- 6. the same command with --device cpu (the plain versions): the
+ 7. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
- 7. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
+ 8. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
 
 Then, on lines of their own, the kernels JSON and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -51,7 +63,13 @@ N_PATHS = 2
 N_SAMPLED_KEYS = 10_000
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
+ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
 SPIN_CYCLES = 2_000_000_000
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
+#: rate outside the tensor cores, taken for the kernels' 32-bit integer
+#: operations
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -79,25 +97,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_native() -> str:
-    """Build psi_tpu's native host library before psi_tpu.native first
-    loads it. native/Makefile compiles with $CXX and -fopenmp; where $CXX
-    names a compiler without OpenMP the build fails and psi_tpu falls back
-    to NumPy for every host leg, so g++ and c++ from PATH are tried next."""
-    from psi_tpu import native
+def build_all():
+    """Build the CUDA kernels and the native host library side by side;
+    returns (kernel library, seconds, host library note, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    if os.path.exists(native._SO_PATH):
-        return "present"
-    errors = []
-    for cxx in dict.fromkeys(c for c in (os.environ.get("CXX"), "g++", "c++")
-                             if c):
-        out = subprocess.run(["make", "-C", native._NATIVE_DIR, "-s",
-                              f"CXX={cxx}"], capture_output=True, text=True,
-                             timeout=600)
-        if out.returncode == 0:
-            return f"built with {cxx}"
-        errors.append(f"{cxx}: {out.stderr.strip().splitlines()[-1:]}")
-    return "not built (" + "; ".join(errors) + ")"
+    from psi_tpu_torch import _build, native
+
+    def timed(fn):
+        t0 = time.monotonic()
+        out = fn()
+        return out, time.monotonic() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernels = pool.submit(timed, _build.load)
+        host = pool.submit(timed, native.available)
+        (_, kernel_s), (loaded, host_s) = kernels.result(), host.result()
+    require(loaded, f"the native host library did not build: "
+            f"{native.load_error}")
+    return (_build.BUILD_DIR / "libkernels.so", kernel_s,
+            f"{_build.BUILD_DIR / 'libpsi_host.so'} ({native.built_with})",
+            host_s)
 
 
 # --- phase 3: data ------------------------------------------------------------
@@ -147,9 +167,9 @@ def write_reads(haps, path: str, n: int, seed: int) -> None:
 
 
 def make_data(tmp: str, ref_len: int, n_reads: int):
-    from psi_tpu.pathutil import sequence
-    from psi_tpu.simulate import make_pangenome_graph
-    from psi_tpu.tools.ggsim import simulate_haplotypes
+    from psi_tpu_torch.pathutil import sequence
+    from psi_tpu_torch.simulate import make_pangenome_graph
+    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
 
     graph = make_pangenome_graph(ref_len, VARIANT_RATE, seed=GRAPH_SEED)
     gfa = os.path.join(tmp, "pangenome.gfa")
@@ -204,8 +224,8 @@ def max_abs_err(got, want) -> int:
 
 
 def first_chunk_index(finder, fastq: str, chunk: int):
-    from psi_tpu.io.fastq import FastxStream
-    from psi_tpu.records import Records
+    from psi_tpu_torch.io.fastq import FastxStream
+    from psi_tpu_torch.records import Records
 
     names, packed = FastxStream(fastq).read_chunk_packed(chunk)
     seeds = finder.get_seeds(Records(names, rec_offset=0, packed=packed))
@@ -219,6 +239,22 @@ def first_chunk_index(finder, fastq: str, chunk: int):
     phase("prepare", f"trie plan (schedule + padding + upload) of chunk 1: "
           f"{time.monotonic() - t0:.4f} s")
     return seeds, index
+
+
+def device_kernel_times(fn) -> dict:
+    """{kernel name: (device us, launches)} of one fn() run, by
+    torch.profiler's CUDA trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
 
 
 def profile_query(finder, seeds, index) -> dict:
@@ -250,8 +286,109 @@ def profile_query(finder, seeds, index) -> dict:
     return {"query_wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3}
 
 
-def kernel_phase(finder, index) -> tuple[list, dict]:
-    """Each kernel vs its plain version at the main path's shapes."""
+def n_unique(x) -> int:
+    import torch
+
+    return int(torch.unique(x).numel())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """Least milliseconds the card could take: the larger of the bytes
+    over HBM bandwidth and the operations over the 32-bit rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# Compulsory traffic of one launch at this run's inputs, as (bytes,
+# integer operations): each input array read once, each output written
+# once, and of the payload or rank tables only the 4-byte words this
+# run's positions land on (distinct blocks, (block, char) pairs or
+# (char, parent) pairs). Operations per element are counted from the
+# kernel sources.
+
+def trie_level_work(parents, chars, lo, hi):
+    import torch
+
+    blocks = torch.cat((lo[parents.long()] >> 5, hi[parents.long()] >> 5))
+    words = 2 * n_unique(blocks * 8 + chars.repeat(2))  # occ + match row
+    return nbytes(parents, chars, lo, hi) + nbytes(lo, hi) + 4 * words, \
+        20 * parents.numel()
+
+
+def rank4_pair_work(lo, hi):
+    import torch
+
+    words = 7 * n_unique(torch.cat((lo >> 5, hi >> 5)))
+    return nbytes(lo, hi) * 5 + 4 * words, 60 * lo.numel()
+
+
+def rank4_work(pos):
+    return nbytes(pos) * 5 + 4 * 7 * n_unique(pos >> 5), 30 * pos.numel()
+
+
+def compact_work(r4lo, parents, chars):
+    pairs = n_unique((chars.long() - 1) * r4lo.shape[1] + parents.long())
+    return nbytes(parents, chars) * 2 + 2 * 4 * pairs, 6 * parents.numel()
+
+
+def rank_work(chars, pos):
+    blk = pos >> 5
+    words = n_unique(blk * 8 + chars) + 3 * n_unique(blk)
+    return nbytes(chars, pos) + nbytes(pos) + 4 * words, 12 * pos.numel()
+
+
+#: the five kernels: wrapper (module, attribute), source, the TPU rows of
+#: the kernel table it replaces and their file:line
+KERNELS = {
+    "trie_level": (("fm_fused", "trie_level"),
+                   "psi_tpu_torch/csrc/trie_level.cu", [1],
+                   ["psi_tpu/ops/fm_fused.py:80"]),
+    "rank4_pair": (("fm_stream", "rank4_pair_stream"),
+                   "psi_tpu_torch/csrc/rank4_pair.cu", [2],
+                   ["psi_tpu/ops/fm_stream.py:570"]),
+    "compact": (("fm_stream", "compact_children"),
+                "psi_tpu_torch/csrc/compact.cu", [3, 8],
+                ["psi_tpu/ops/fm_stream.py:1036",
+                 "psi_tpu/ops/fm_stream.py:1154"]),
+    "rank4": (("fm_stream", "rank4_stream"), "psi_tpu_torch/csrc/rank4.cu",
+              [4, 5, 6, 7],
+              ["psi_tpu/ops/fm_stream.py:433", "psi_tpu/ops/fm_stream.py:361",
+               "psi_tpu/ops/fm_stream.py:736",
+               "psi_tpu/ops/fm_stream.py:878"]),
+    "rank": (("fm_stream", "rank_stream"), "psi_tpu_torch/csrc/rank.cu", [9],
+             ["psi_tpu/ops/fm_stream.py:166"]),
+}
+ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
+
+
+def _wrappers() -> dict:
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"psi_tpu_torch.ops.{mod}"), attr)
+        for name, ((mod, attr), *_) in KERNELS.items()}
+
+
+def reset_counters() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def kernel_phase(finder, index) -> tuple[dict, dict]:
+    """Each kernel against its plain version at the main path's shapes:
+    every level of chunk 1's frontier. Returns per-kernel records (max
+    error, device, enqueued and plain ms per launch, bound) and route
+    facts."""
     import torch
 
     from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
@@ -259,65 +396,59 @@ def kernel_phase(finder, index) -> tuple[list, dict]:
     sarr = finder._get_stream_arrays()
     uniq, _, prep = index._onpath_prep
     levels, npad = prep.parents.shape
+    par, chs = prep.parents, prep.chars
     phase("kernels", f"index {sarr.n} chars; payloadW "
           f"{tuple(sarr.payloadW.shape)}, payloadT "
           f"{tuple(sarr.payloadT.shape)}; {len(uniq)} distinct keys in a "
           f"{npad}-slot frontier, {levels} levels")
 
-    # trie_level, level by level on the kernel's own frontier
+    # the frontier of every level, by the trie-level kernel
     fronts = [(prep.lo0, prep.hi0)]
-    err_level = 0
+    err = dict.fromkeys(("trie_level", "rank4_pair", "compact", "rank4",
+                         "rank"), 0)
     for j in range(levels):
         lo, hi = fronts[-1]
         out = (torch.empty_like(lo), torch.empty_like(hi))
-        fm_fused.trie_level(sarr.payloadW, sarr.C, prep.parents[j],
-                            prep.chars[j], lo, hi, *out)
-        want = fm_fused.trie_level_plain(sarr.payloadW, sarr.C,
-                                         prep.parents[j], prep.chars[j],
-                                         lo, hi)
-        err_level = max(err_level, max_abs_err(out[0], want[0]),
-                        max_abs_err(out[1], want[1]))
+        fm_fused.trie_level(sarr.payloadW, sarr.C, par[j], chs[j], lo, hi,
+                            *out)
+        want = fm_fused.trie_level_plain(sarr.payloadW, sarr.C, par[j],
+                                         chs[j], lo, hi)
+        err["trie_level"] = max(err["trie_level"], max_abs_err(out[0], want[0]),
+                                max_abs_err(out[1], want[1]))
         fronts.append(out)
-    torch.cuda.synchronize()
-    require(err_level == 0, f"trie_level differs from plain by {err_level}")
 
-    def plain_chain():
-        lo, hi = prep.lo0, prep.hi0
-        for j in range(levels):
-            lo, hi = fm_fused.trie_level_plain(
-                sarr.payloadW, sarr.C, prep.parents[j], prep.chars[j], lo, hi)
-        return lo, hi
-
-    def fused_chain():
-        return fm_fused.trie_fused(sarr, prep.parents, prep.chars,
-                                   prep.lo0, prep.hi0)
-
-    ms_level = cuda_ms(fused_chain, KERNEL_REPS) / levels
-    plain_ms_level = cuda_ms(plain_chain, PLAIN_REPS) / levels
-    host_ms_level = enqueue_ms(fused_chain, KERNEL_REPS) / levels
-
-    # rank4_pair + compact, on every level's frontier
-    err_r4 = err_cp = 0
-    r4s = []
+    # rank4_pair, rank4 and compact on every level's frontier; rank at
+    # the parents' lo with the children's chars, which is the trie step
+    r4s, ranked = [], []
     for j in range(levels):
         lo, hi = fronts[j]
         r4 = fm_stream.rank4_pair_stream(sarr, lo, hi)
         want = fm_stream.rank4_pair_plain(sarr, lo, hi)
-        err_r4 = max(err_r4, max_abs_err(r4[0], want[0]),
-                     max_abs_err(r4[1], want[1]))
-        got = fm_stream.compact_children(r4[0], r4[1], prep.parents[j],
-                                         prep.chars[j], sarr.C)
-        want = fm_stream.compact_plain(r4[0], r4[1], prep.parents[j],
-                                       prep.chars[j], sarr.C)
-        err_cp = max(err_cp, max_abs_err(got[0], want[0]),
-                     max_abs_err(got[1], want[1]))
+        err["rank4_pair"] = max(err["rank4_pair"], max_abs_err(r4[0], want[0]),
+                                max_abs_err(r4[1], want[1]))
+        for pos, w in zip((lo, hi), want):
+            got = fm_stream.rank4_stream(sarr, pos)
+            err["rank4"] = max(err["rank4"], max_abs_err(got, w),
+                               max_abs_err(got, fm_stream.rank4_plain(
+                                   sarr.payloadT, pos)))
+        got = fm_stream.compact_children(r4[0], r4[1], par[j], chs[j], sarr.C)
+        want = fm_stream.compact_plain(r4[0], r4[1], par[j], chs[j], sarr.C)
+        err["compact"] = max(err["compact"], max_abs_err(got[0], want[0]),
+                             max_abs_err(got[1], want[1]))
         require(max_abs_err(got[0], fronts[j + 1][0]) == 0
                 and max_abs_err(got[1], fronts[j + 1][1]) == 0,
                 f"two-pass level {j} differs from the fused level")
+        pos = lo[par[j].long()]
+        rk = fm_stream.rank_stream(sarr, chs[j], pos)
+        err["rank"] = max(err["rank"], max_abs_err(
+            rk, fm_stream.rank_plain(sarr.payloadT, chs[j], pos)))
+        require(max_abs_err(sarr.C[chs[j].long()] + rk, fronts[j + 1][0]) == 0,
+                f"C[c] + rank(c, lo[parent]) differs from level {j}'s lo")
         r4s.append(r4)
+        ranked.append(pos)
     torch.cuda.synchronize()
-    require(err_r4 == 0, f"rank4_pair differs from plain by {err_r4}")
-    require(err_cp == 0, f"compact differs from plain by {err_cp}")
+    for name, e in err.items():
+        require(e == 0, f"{name} differs from its plain version by {e}")
 
     def each_level(fn):
         def run():
@@ -325,26 +456,60 @@ def kernel_phase(finder, index) -> tuple[list, dict]:
                 fn(j)
         return run
 
-    ms_r4 = cuda_ms(each_level(lambda j: fm_stream.rank4_pair_stream(
-        sarr, *fronts[j])), KERNEL_REPS) / levels
-    plain_ms_r4 = cuda_ms(each_level(lambda j: fm_stream.rank4_pair_plain(
-        sarr, *fronts[j])), PLAIN_REPS) / levels
-    ms_cp = cuda_ms(each_level(lambda j: fm_stream.compact_children(
-        *r4s[j], prep.parents[j], prep.chars[j], sarr.C)),
-        KERNEL_REPS) / levels
-    plain_ms_cp = cuda_ms(each_level(lambda j: fm_stream.compact_plain(
-        *r4s[j], prep.parents[j], prep.chars[j], sarr.C)),
-        PLAIN_REPS) / levels
-
-    # the whole two-pass route (fused=False) against the fused route
-    two = fm_trie._trie_device(sarr, prep.parents, prep.chars, prep.lo0,
-                               prep.hi0, fused=False)
-    require(max_abs_err(two[0], fronts[-1][0]) == 0
-            and max_abs_err(two[1], fronts[-1][1]) == 0,
-            "two-pass route differs from the fused route")
-    ms_two = cuda_ms(lambda: fm_trie._trie_device(
-        sarr, prep.parents, prep.chars, prep.lo0, prep.hi0,
-        fused=False), KERNEL_REPS) / levels
+    runs = {
+        "trie_level": (
+            lambda: fm_fused.trie_fused(sarr, par, chs, prep.lo0, prep.hi0),
+            each_level(lambda j: fm_fused.trie_level_plain(
+                sarr.payloadW, sarr.C, par[j], chs[j], *fronts[j])),
+            levels,
+            [trie_level_work(par[j], chs[j], *fronts[j])
+             for j in range(levels)]),
+        "rank4_pair": (
+            each_level(lambda j: fm_stream.rank4_pair_stream(
+                sarr, *fronts[j])),
+            each_level(lambda j: fm_stream.rank4_pair_plain(
+                sarr, *fronts[j])),
+            levels,
+            [rank4_pair_work(*fronts[j]) for j in range(levels)]),
+        "rank4": (
+            each_level(lambda j: [fm_stream.rank4_stream(sarr, p)
+                                  for p in fronts[j]]),
+            each_level(lambda j: [fm_stream.rank4_plain(sarr.payloadT, p)
+                                  for p in fronts[j]]),
+            2 * levels,
+            [rank4_work(p) for j in range(levels) for p in fronts[j]]),
+        "compact": (
+            each_level(lambda j: fm_stream.compact_children(
+                *r4s[j], par[j], chs[j], sarr.C)),
+            each_level(lambda j: fm_stream.compact_plain(
+                *r4s[j], par[j], chs[j], sarr.C)),
+            levels,
+            [compact_work(r4s[j][0], par[j], chs[j]) for j in range(levels)]),
+        "rank": (
+            each_level(lambda j: fm_stream.rank_stream(
+                sarr, chs[j], ranked[j])),
+            each_level(lambda j: fm_stream.rank_plain(
+                sarr.payloadT, chs[j], ranked[j])),
+            levels,
+            [rank_work(chs[j], ranked[j]) for j in range(levels)]),
+    }
+    records = {}
+    for name, (kernel, plain, per_run, work) in runs.items():
+        ms = cuda_ms(kernel, KERNEL_REPS) / per_run
+        enq = enqueue_ms(kernel, KERNEL_REPS) / per_run
+        plain_ms = cuda_ms(plain, PLAIN_REPS) / per_run
+        bytes_moved = sum(b for b, _ in work) / len(work)
+        ops = sum(o for _, o in work) / len(work)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        records[name] = {"max_abs_err": err[name], "ms": ms,
+                         "enqueued_ms": enq, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bytes": bytes_moved, "ops": ops}
+        phase("kernels", f"{name}: {1e3 * ms:.3f} us/launch on the device "
+              f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}); "
+              f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
+              f"({bytes_moved / 1e6:.2f} MB/launch); bit-equal over {npad} "
+              f"slots x {levels} levels")
 
     # expand + locate of the chunk's leaf ranges (torch operators)
     lo, hi = fronts[-1]
@@ -355,33 +520,105 @@ def kernel_phase(finder, index) -> tuple[list, dict]:
     ms_expand = cuda_ms(lambda: fm_trie.expand_locate(
         sa, maps.str_starts, maps.lengths, maps.seq_off, lo, hi,
         len(uniq), 2**31 - 1, finder.seed_len, total), PLAIN_REPS)
-    phase("kernels", f"device time: trie_level {ms_level:.4f} ms/level (plain "
-          f"{plain_ms_level:.4f}; enqueued back to back as the main path "
-          f"runs it {host_ms_level:.4f}); rank4_pair {ms_r4:.4f} (plain "
-          f"{plain_ms_r4:.4f}); compact {ms_cp:.4f} (plain {plain_ms_cp:.4f});"
-          f" two-pass route {ms_two:.4f} ms/level; all bit-equal over "
-          f"{npad} slots x {levels} levels")
     phase("kernels", f"expand + locate of {total} occurrences: "
           f"{ms_expand:.3f} ms/chunk")
-    rows = [
-        ("trie_level", "psi_tpu_torch/csrc/trie_level.cu",
-         "psi_tpu/ops/fm_fused.py:80", err_level, ms_level, plain_ms_level),
-        ("rank4_pair", "psi_tpu_torch/csrc/rank4_pair.cu",
-         "psi_tpu/ops/fm_stream.py:570", err_r4, ms_r4, plain_ms_r4),
-        ("compact", "psi_tpu_torch/csrc/compact.cu",
-         "psi_tpu/ops/fm_stream.py:1036", err_cp, ms_cp, plain_ms_cp),
-    ]
-    kernels = [
-        {"name": n, "route": "cuda", "source": s, "replaces": r,
-         "max_abs_err": e, "ms": ms, "plain_ms": pms,
-         "shape": f"{npad} slots/level"}
-        for n, s, r, e, ms, pms in rows
-    ]
     extra = {"levels": levels, "npad": npad, "keys": len(uniq),
-             "trie_level_enqueued_ms_per_level": host_ms_level,
-             "two_pass_ms_per_level": ms_two,
              "expand_locate_ms": ms_expand, "occurrences": total}
-    return kernels, extra
+    return records, extra
+
+
+def route_phase(finder, index) -> tuple[dict, dict, float]:
+    """The level routes and the backward search on chunk 1's keys, each
+    through its entry point with the launch counters set to 0 just before
+    and read just after. Returns the launch counts per kernel (from the
+    route that runs it), (device, enqueued) ms per chunk per route, and
+    the rank kernel's device µs per launch inside the backward search."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import fm_stream, fm_trie
+
+    sarr = finder._get_stream_arrays()
+    ftab = finder._get_ftab()
+    uniq, _, prep = index._onpath_prep
+    k = finder.seed_len
+    levels = prep.parents.shape[0]
+    p = k - levels
+    routes = {
+        "fused": dict(fused=True),
+        "two-pass pair": dict(fused=False, pair=True),
+        "two-pass unpaired": dict(fused=False, pair=False),
+    }
+    expect = {
+        "fused": {"trie_level": levels},
+        "two-pass pair": {"rank4_pair": levels, "compact": levels},
+        "two-pass unpaired": {"rank4": 2 * levels, "compact": levels},
+        "backward_search_sorted": {"rank": 2 * levels},
+    }
+    launches, ms = {}, {}
+    leaves = {}
+    for name, kw in routes.items():
+        reset_counters()
+        leaves[name] = fm_trie.trie_search(sarr, uniq, k, ftab=ftab,
+                                           prepared=prep, **kw)
+        got = read_counters()
+        require(got == {**ZERO_COUNTS, **expect[name]},
+                f"route {name} launched {got}, expected {expect[name]}")
+        launches.update(expect[name])
+        run = (lambda kw=kw: fm_trie._trie_device(
+            sarr, prep.parents, prep.chars, prep.lo0, prep.hi0, **kw))
+        ms[name] = (cuda_ms(run, ROUTE_REPS), enqueue_ms(run, ROUTE_REPS))
+    for name in routes:
+        for got, want in zip(leaves[name], leaves["fused"]):
+            require(np.array_equal(got, want),
+                    f"route {name}: leaf ranges differ from the fused route")
+
+    # backward search over the keys' code rows from the ftab frontier
+    shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    codes = ((uniq[:, None] >> shifts) & np.uint64(3)).astype(np.int32) + 1
+    rows = ftab[(uniq >> np.uint64(2 * (k - p))).astype(np.int64)]
+    dev = sarr.payloadT.device
+    args = (torch.from_numpy(np.ascontiguousarray(codes[:, p:])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(rows[:, 0])).to(dev),
+            torch.from_numpy(np.ascontiguousarray(rows[:, 1])).to(dev))
+    torch.cuda.synchronize()
+    reset_counters()
+    blo, bhi = fm_stream.backward_search_sorted(sarr, *args)
+    torch.cuda.synchronize()
+    got = read_counters()
+    require(got == {**ZERO_COUNTS, **expect["backward_search_sorted"]},
+            f"backward_search_sorted launched {got}")
+    launches.update(expect["backward_search_sorted"])
+    run = lambda: fm_stream.backward_search_sorted(sarr, *args)  # noqa: E731
+    ms["backward_search_sorted"] = (cuda_ms(run, ROUTE_REPS),
+                                    enqueue_ms(run, ROUTE_REPS))
+    # after its first step the backward search ranks scattered positions:
+    # the rank kernel's own time there, from the profiler's device trace
+    top = device_kernel_times(run)
+    rank_us = [(t, n) for key, (t, n) in top.items() if "rank_kernel" in key]
+    require(len(rank_us) == 1, f"no rank kernel in the trace: {list(top)}")
+    rank_scattered_us = rank_us[0][0] / rank_us[0][1]
+    phase("routes", "backward_search_sorted device time by kernel (us, "
+          "launches): " + "; ".join(
+              f"{key[:48]} {t:.1f} x{n}" for key, (t, n) in
+              sorted(top.items(), key=lambda kv: -kv[1][0])[:5]))
+    blo, bhi = blo.cpu().numpy(), bhi.cpu().numpy()
+    tlo, thi = leaves["fused"]
+    require(np.array_equal(bhi - blo, thi - tlo),
+            "backward_search_sorted counts differ from the trie's")
+    found = thi > tlo
+    require(np.array_equal(blo[found], tlo[found]),
+            "backward_search_sorted lo differs from the trie's")
+    phase("routes", f"{len(uniq)} keys, {levels} levels from the p={p} "
+          f"ftab: leaf ranges of the fused, paired and unpaired routes "
+          f"equal; backward_search_sorted counts equal the trie's "
+          f"({int(found.sum())} keys present); launches {launches}")
+    for name, (dev_ms, enq) in ms.items():
+        phase("routes", f"{name}: {dev_ms:.4f} ms/chunk on the device, "
+              f"{enq:.4f} enqueued")
+    phase("routes", f"rank on the backward search's scattered positions: "
+          f"{rank_scattered_us:.3f} us/launch")
+    return launches, ms, rank_scattered_us
 
 
 # --- phases 5 and 6: the CLI ---------------------------------------------------
@@ -484,18 +721,9 @@ def main(argv=None) -> int:
     phase("card", card)
     name = torch.cuda.get_device_name(0)
 
-    from psi_tpu import native
-    from psi_tpu_torch import _build
-    from psi_tpu_torch.ops import fm_fused, fm_stream
-
-    t0 = time.monotonic()
-    lib = _build.build()
-    _build.load()
-    phase("build", f"{lib} in {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    note = build_native()
-    phase("build", f"psi_tpu native host library {note} in "
-          f"{time.monotonic() - t0:.1f} s; loaded: {native.available()}")
+    lib, lib_s, host, host_s = build_all()
+    phase("build", f"CUDA kernels {lib} in {lib_s:.1f} s; native host "
+          f"library {host} in {host_s:.1f} s, side by side")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # the graph loader caches parsed graphs under ~/.cache: keep it here
@@ -505,42 +733,39 @@ def main(argv=None) -> int:
         phase("data", f"{args.ref_len} bp graph + {N_CHUNKS * args.chunk} "
               f"reads in {time.monotonic() - t0:.1f} s")
 
-        from psi_tpu.io import load_graph
+        from psi_tpu_torch.io import load_graph
         from psi_tpu_torch.seed_finder import SeedFinder
 
         t0 = time.monotonic()
-        finder = SeedFinder(load_graph(gfa), SEED_LEN,
-                            device=torch.device("cuda", 0))
+        finder = SeedFinder(load_graph(gfa), SEED_LEN)
+        require(finder.device.type == "cuda",
+                f"SeedFinder's default device is {finder.device}")
         finder.create_path_index(N_PATHS, patched=False)
         phase("index", f"{finder.pindex.fm.size} chars, "
               f"{len(finder.get_starting_loci())} loci in "
               f"{time.monotonic() - t0:.1f} s")
         seeds, index = first_chunk_index(finder, fastq, args.chunk)
-        kernels, extra = kernel_phase(finder, index)
+        records, extra = kernel_phase(finder, index)
+        launches, route_ms, extra["rank_scattered_us_per_launch"] = (
+            route_phase(finder, index))
+        extra["route_ms_per_chunk"] = {
+            r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
         extra.update(profile_query(finder, seeds, index))
 
-        for fn in (fm_fused.trie_level, fm_stream.rank4_pair_stream,
-                   fm_stream.compact_children):
-            fn.launches = 0
+        reset_counters()
         hits_cuda, rep_cuda, wall = run_cli(gfa, fastq, tmp, "cuda",
                                             args.chunk)
-        launches = {
-            "trie_level": fm_fused.trie_level.launches,
-            "rank4_pair": fm_stream.rank4_pair_stream.launches,
-            "compact": fm_stream.compact_children.launches,
-        }
+        cli_launches = read_counters()
         cuda_res = summarize(rep_cuda, "cuda", wall)
         n_chunks = len(rep_cuda["chunks"])
-        want = n_chunks * extra["levels"]
-        require(launches["trie_level"] == want,
-                f"trie_level launched {launches['trie_level']} times in the "
-                f"CLI run, expected {n_chunks} chunks x {extra['levels']} "
-                "levels")
+        want = {**ZERO_COUNTS, "trie_level": n_chunks * extra["levels"]}
+        require(cli_launches == want,
+                f"the CLI run launched {cli_launches}, expected {want} "
+                f"({n_chunks} chunks x {extra['levels']} levels)")
         require(cuda_res["hits_on"] > 0 and cuda_res["hits_off"] > 0,
                 "the CLI run found no on-path or no off-path hits")
-        phase("cli-cuda", f"launches in the CLI run: {launches}")
-        for k in kernels:
-            k["launches"] = launches[k["name"]]
+        phase("cli-cuda", f"launches in the CLI run: {cli_launches}")
+        launches["trie_level"] = cli_launches["trie_level"]
 
         hits_cpu, rep_cpu, wall = run_cli(gfa, fastq, tmp, "cpu", args.chunk)
         summarize(rep_cpu, "cpu", wall)
@@ -556,6 +781,29 @@ def main(argv=None) -> int:
         phase("counts", f"{min(N_SAMPLED_KEYS, len(uniq))} sampled keys "
               f"({present} present) agree with FMIndex.backward_search")
 
+    paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
+             "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
+             "compact": "trie_search(fused=False, pair=False), chunk 1",
+             "rank4": "trie_search(fused=False, pair=False), chunk 1",
+             "rank": "backward_search_sorted, chunk 1"}
+    kernels = []
+    for kname, (_, source, rows, replaces) in KERNELS.items():
+        require(launches[kname] > 0, f"{kname} was never launched on its path")
+        rec = records[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces[0], "replaces_all": replaces,
+            "tpu_rows": rows, "launches": launches[kname],
+            "launches_path": paths[kname],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "enqueued_ms": rec["enqueued_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "bound_bytes": rec["bytes"], "bound_ops": rec["ops"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a gather "
+                       "plus a popcount plus an add",
+            "shape": f"{extra['npad']} slots x {extra['levels']} levels",
+        })
     summary = {
         "kernels": kernels,
         "card": card,

@@ -4,20 +4,24 @@ A second package beside `psi_tpu`, which stays the reference it is held
 against. Module names mirror `psi_tpu`'s so each counterpart is easy to
 find:
 
-  device.py       -- resolves `--device {cuda,cpu}` (no silent fallback)
-  _build.py       -- compiles csrc/*.cu with nvcc and binds them (ctypes)
-  convert.py      -- psi_tpu state (as numpy) -> this package's tensors
-  ops/fm_stream.py -- rank payload layouts, rank4_pair + compact kernels
-  ops/fm_fused.py -- the one-level trie extension kernel (main path)
-  ops/fm.py       -- ftab, dense SA upload, SA-position mapping arrays
-  ops/fm_trie.py  -- trie schedule, prepare, level loop, expand + locate
-  ops/traverse.py -- the host WalkTree (off-path route)
-  seed_finder.py  -- SeedFinder over psi_tpu's host lifecycle
-  cli.py          -- the psikt chunk loop with `--device`
+  device.py        -- resolves `--device {cuda,cpu}` (no silent fallback)
+  _build.py        -- compiles csrc/*.cu (nvcc) and csrc/host/*.cpp (g++)
+  native.py        -- ctypes bindings of the native host library
+  convert.py       -- psi_tpu state (as numpy) -> this package's tensors
+  ops/fm_stream.py -- rank payloads; rank4_pair, rank4, compact and rank
+                      kernels; backward_search_sorted
+  ops/fm_fused.py  -- the one-level trie extension kernel (main path)
+  ops/fm.py        -- ftab, dense SA upload, SA-position mapping arrays
+  ops/fm_trie.py   -- trie schedule, prepare, level routes, expand + locate
+  ops/traverse.py  -- the host WalkTree (off-path route)
+  seed_finder.py   -- SeedFinder: psi_tpu's host lifecycle, these routes
+  cli.py           -- the psikt chunk loop with `--device`
 
-The jax-free host layers (graph, io, records, fmindex, pathset, native,
-...) are imported from `psi_tpu`, not copied. This package never
-imports jax.
+The host layers (graph, graphiter, pathutil, pathset, fmindex, records,
+seed, stats, simulate, io, ops/kmers, tools/ggsim) are copies of
+psi_tpu's with their imports pointed here, and csrc/host/ holds copies
+of the native C++ they call. This package imports neither jax nor
+psi_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,27 @@
-"""Build and bind the hand-written CUDA kernels (csrc/*.cu).
+"""Build and bind the hand-written CUDA kernels (csrc/*.cu) and the native
+host library (csrc/host/*.cpp).
 
-nvcc compiles every source in csrc/ into one shared library with a plain
-C interface, build/psi_tpu_torch/libkernels.so at the repository root,
-at first use. The build is keyed by a hash of the sources and flags, so
-an edited kernel rebuilds and an unchanged one loads as it is. Each C
-entry point launches on the stream it is given and returns
-cudaGetLastError(); `launch` raises when that is not 0. A failed build
-or launch raises: nothing here falls back to the plain versions.
+Both are compiled at first use into build/psi_tpu_torch/ at the
+repository root: every source by its own compiler process, all started
+together, then one link into a shared library with a plain C interface.
+Each build is keyed by a hash of its sources and flags, so an edited
+source rebuilds and an unchanged one loads as it is; a file lock keeps
+concurrent processes from building the same library twice.
+
+  libkernels.so   nvcc for sm_90a. Each C entry point launches on the
+                  stream it is given and returns cudaGetLastError();
+                  `launch` raises when that is not 0.
+  libpsi_host.so  g++ from PATH, else c++, -O3 -std=c++17, with -fopenmp
+                  where the compiler accepts it; `native.py` binds it.
+
+A failed build or launch raises: nothing here falls back to the plain
+versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -24,13 +34,15 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
+HOST_SRC = CSRC / "host"
 BUILD_DIR = _PKG.parent / "build" / "psi_tpu_torch"
 #: CUDA toolkit roots searched for bin/nvcc after PATH and $CUDA_HOME
 NVCC_ROOTS = ("/usr/local/cuda",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC")
+#: host compilers tried in order
+CXX_NAMES = ("g++", "c++")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -41,12 +53,54 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+def _digest(flags, sources) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in sources:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
+
+
+def source_hash() -> str:
+    return _digest(NVCC_FLAGS, sorted(CSRC.glob("*.cu*")))
+
+
+def _run_all(tool: str, cmds: list[list[str]]) -> None:
+    """Run the commands side by side, one process each; raise with the
+    compiler's output if any fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{tool} failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _build_library(stem: str, tool: str, digest: str, sources, compile_cmd,
+                   link_cmd) -> pathlib.Path:
+    """Compile `sources` in parallel and link them into BUILD_DIR/stem.so,
+    unless the library on disk was built from the same digest."""
+    lib = BUILD_DIR / f"{stem}.so"
+    stamp = BUILD_DIR / f"{stem}.sha256"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+            return lib
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+            _run_all(tool, [compile_cmd(str(src), obj)
+                            for src, obj in zip(sources, objs)])
+            out = os.path.join(tmp, f"{stem}.so")
+            _run_all(tool, [link_cmd(objs, out)])
+            os.replace(out, lib)
+        stamp.write_text(digest)
+    return lib
 
 
 def _nvcc() -> str:
@@ -70,20 +124,51 @@ def build() -> pathlib.Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+    return _build_library(
+        "libkernels", "nvcc", digest, _sources(),
+        lambda src, obj: [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+        lambda objs, out: [nvcc, *NVCC_ARCH, "-shared", "-o", out, *objs],
+    )
+
+
+def _cxx() -> str:
+    for name in CXX_NAMES:
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        f"no C++ compiler on PATH ({', '.join(CXX_NAMES)}): the native "
+        "host library cannot be built"
+    )
+
+
+def _accepts_openmp(cxx: str) -> bool:
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "omp.cpp")
+        with open(src, "w") as fh:
+            fh.write("#include <omp.h>\nint f() { return omp_get_max_threads(); }\n")
+        proc = subprocess.run(
+            [cxx, "-fopenmp", "-fPIC", "-shared", "-o",
+             os.path.join(tmp, "omp.so"), src],
+            capture_output=True,
         )
-    os.replace(tmp, lib)
-    stamp.write_text(digest)
-    return lib
+        return proc.returncode == 0
+
+
+def build_host() -> tuple[pathlib.Path, str]:
+    """Compile csrc/host/*.cpp into libpsi_host.so; returns the library
+    and the compiler command line it was built with."""
+    cxx = _cxx()
+    flags = CXX_FLAGS + (("-fopenmp",) if _accepts_openmp(cxx) else ())
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout
+    sources = sorted(HOST_SRC.glob("*.cpp"))
+    lib = _build_library(
+        "libpsi_host", cxx, _digest((cxx, version, *flags), sources), sources,
+        lambda src, obj: [cxx, *flags, "-c", "-o", obj, src],
+        lambda objs, out: [cxx, *flags, "-shared", "-o", out, *objs],
+    )
+    return lib, " ".join((cxx, *flags))
 
 
 def load() -> ctypes.CDLL:

@@ -29,7 +29,6 @@ from typing import Optional
 
 import numpy as np
 
-from psi_tpu.cli import _write_report, setup_logging
 from psi_tpu_torch.device import CHOICES
 
 log = logging.getLogger("psikt")
@@ -118,14 +117,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def setup_logging(args):
+    handlers = []
+    if not args.quiet:
+        handlers.append(logging.StreamHandler(sys.stderr))
+    if not args.no_log_file and not args.disable_log:
+        handlers.append(logging.FileHandler(args.log_file))
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="[%(asctime)s] [%(name)s] [%(levelname)s] %(message)s",
+        handlers=handlers if not args.disable_log else [logging.NullHandler()],
+    )
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging(args)
 
-    from psi_tpu.io import load_graph
-    from psi_tpu.io.fastq import FastxStream
-    from psi_tpu.records import Records
-    from psi_tpu.stats import SeedFinderStats, Timer
+    from psi_tpu_torch.io import load_graph
+    from psi_tpu_torch.io.fastq import FastxStream
+    from psi_tpu_torch.records import Records
+    from psi_tpu_torch.stats import SeedFinderStats, Timer
     from psi_tpu_torch.device import resolve
     from psi_tpu_torch.seed_finder import SeedFinder
 
@@ -365,6 +377,57 @@ def main(argv: Optional[list] = None) -> int:
         with open(args.report, "w") as fh:
             json.dump(report, fh, indent=2)
     return 0
+
+
+def _write_report(args, finder, graph, found, covered_reads, n_chunks):
+    """End-of-run metrics in the reference's benchmark schema
+    (field list per script/parse2csv_psikt_config.yaml)."""
+    import json as _json
+
+    from psi_tpu_torch.stats import Timer
+
+    def t(name):
+        total = 0.0
+        for tname, timer in Timer.get_timers().items():
+            if tname.startswith(name):
+                total += timer.lap()
+        return round(total, 4)
+
+    report = {
+        "dataset": args.graph,
+        "seedlen": args.seed_length,
+        "distance": args.distance or args.seed_length,
+        "pathno": args.path_num,
+        "patched": not args.no_patched,
+        "context": finder.pindex.get_context(),
+        "readsindex": "sorted-kmer",
+        "chunksize": args.chunk_size,
+        "stepsize": args.step_size,
+        "pathpicktime": t("pick-paths"),
+        "pathindextime": t("index-paths"),
+        "pathsavetime": t("save-pindex"),
+        "pindexsize": int(finder.pindex.fm.size) if finder.pindex.fm else 0,
+        "locino": len(finder.get_starting_loci()),
+        "uniqnodes": finder.get_nof_uniq_nodes(),
+        "totalnodes": graph.node_count,
+        "pathquerytimeperchunk": round(
+            t("seeds-on-paths") / max(1, n_chunks), 4
+        ),
+        "traversetimeperchunk": round(
+            t("seeds-off-path") / max(1, n_chunks), 4
+        ),
+        "seedhits": found,
+        "coveredreads": len(covered_reads),
+        # traversal counters (ref: TraverserStats fed end-of-run report,
+        # psikt.cpp:59-80)
+        "godowns": finder.stats.get_this_thread_stats().godowns,
+        "traversedpaths": finder.stats.get_this_thread_stats().paths_traversed,
+        "avgpathlen": round(
+            finder.stats.get_this_thread_stats().avg_pathlen(), 2
+        ),
+    }
+    with open(args.report, "w") as fh:
+        _json.dump(report, fh, indent=2)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 // Child assembly of the two-pass level route.
 //
-// Replaces psi_tpu/ops/fm_stream.py::_compact_kernel. Child i of the
-// level, with parent slot p and char c (1..4), takes the parent's ranks
-// from rank4_pair's [4, Mprev] outputs:
+// Replaces psi_tpu/ops/fm_stream.py::_compact_kernel and its flat-ring
+// variant _compact_kernel_flat (PSI_COMPACT=flat), which compute the same
+// outputs and differ only in how parent windows are staged in VMEM.
+// Child i of the level, with parent slot p and char c (1..4), takes the
+// parent's ranks from the [4, Mprev] outputs of rank4_pair or of two
+// rank4 launches:
 //   lo'[i] = C[c] + r4lo[c-1][p],   hi'[i] = C[c] + r4hi[c-1][p]
 //
 // What bounds it on an H100: two gathered 4-byte reads per child from

@@ -5,11 +5,7 @@
 // payload and the frontier exceed its VMEM budget (texts above ~10 Mbp).
 // Thread i ranks lo[i] and hi[i]:
 //   r4[c-1][i] = occ_c[b] + popc(match_c & below),  c = 1..4
-// with payloadT [16, NBpad] (ops/fm_stream.py): occ rows 1..4 and the
-// BWT bit-plane words in rows 6..8 of column b = pos >> 5. The match
-// word of c is the AND over the three planes of the plane or its
-// complement, chosen by the bits of c (the pad symbol 255 has planes
-// 1,1,1 and never matches 1..4). below = (1 << (pos & 31)) - 1, unsigned.
+// (payload_rank.cuh has the arithmetic).
 //
 // What bounds it on an H100: per position, seven dependent-free 4-byte
 // reads from one payload column (strided by NBpad, so seven L2 sectors),
@@ -24,27 +20,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "payload_rank.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void rank4(const int32_t* __restrict__ payloadT,
-                                      size_t nbpad, int32_t pos,
-                                      int32_t* __restrict__ out, int i,
-                                      int m) {
-  const uint32_t b = static_cast<uint32_t>(pos) >> 5;
-  const uint32_t p0 = static_cast<uint32_t>(__ldg(payloadT + 6 * nbpad + b));
-  const uint32_t p1 = static_cast<uint32_t>(__ldg(payloadT + 7 * nbpad + b));
-  const uint32_t p2 = static_cast<uint32_t>(__ldg(payloadT + 8 * nbpad + b));
-  const uint32_t below = (1u << (static_cast<uint32_t>(pos) & 31u)) - 1u;
-#pragma unroll
-  for (int c = 1; c <= 4; ++c) {
-    const uint32_t match = ((c & 1) ? p0 : ~p0) & ((c & 2) ? p1 : ~p1) &
-                           ((c & 4) ? p2 : ~p2);
-    out[static_cast<size_t>(c - 1) * m + i] =
-        __ldg(payloadT + c * nbpad + b) + __popc(match & below);
-  }
-}
 
 __global__ void rank4_pair_kernel(const int32_t* __restrict__ payloadT,
                                   int nbpad,
@@ -54,8 +34,8 @@ __global__ void rank4_pair_kernel(const int32_t* __restrict__ payloadT,
                                   int32_t* __restrict__ r4hi, int m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  rank4(payloadT, static_cast<size_t>(nbpad), lo[i], r4lo, i, m);
-  rank4(payloadT, static_cast<size_t>(nbpad), hi[i], r4hi, i, m);
+  psi::rank4_at(payloadT, static_cast<size_t>(nbpad), lo[i], r4lo, i, m);
+  psi::rank4_at(payloadT, static_cast<size_t>(nbpad), hi[i], r4hi, i, m);
 }
 
 }  // namespace

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from psi_tpu.fmindex import FMIndex
+from psi_tpu_torch.fmindex import FMIndex
 
 
 def build_ftab(fm: FMIndex, p: int) -> np.ndarray:

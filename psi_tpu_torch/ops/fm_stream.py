@@ -1,7 +1,7 @@
-"""Rank payloads and the two-pass level route (rank4_pair + compact).
+"""Rank payloads, the two-pass level routes and per-query rank.
 
-Counterpart of psi_tpu/ops/fm_stream.py. The payload layouts are the
-same arrays, element for element:
+Counterpart of psi_tpu/ops/fm_stream.py, all of it. The payload layouts
+are the same arrays, element for element:
 
     payloadT [16, NBpad] int32   rows 0..5 = occ checkpoints per symbol
                                  before each 32-position block, rows
@@ -13,11 +13,18 @@ same arrays, element for element:
 payloadW is always built: the TPU's VMEM residency budget that made it
 optional there does not apply to global memory.
 
-`rank4_pair_stream` and `compact_children` are the per-level passes of
-the route psi_tpu takes when payload plus frontier exceed its VMEM
-budget. Their kernels are csrc/rank4_pair.cu and csrc/compact.cu; each
-wrapper runs its plain PyTorch version for CPU tensors and launches the
-kernel for CUDA tensors, and counts those launches in `.launches`.
+Kernels, each behind a wrapper that runs its plain PyTorch version for
+CPU tensors, launches the kernel for CUDA tensors (raising on any other
+device) and counts those launches in `.launches`:
+
+  rank4_pair_stream  csrc/rank4_pair.cu  ranks of A/C/G/T at lo and hi
+  rank4_stream       csrc/rank4.cu       ranks of A/C/G/T at one array
+  compact_children   csrc/compact.cu     child ranges from parent ranks
+  rank_stream        csrc/rank.cu        rank(c_i, pos_i) per query
+
+The first three are the passes of the two-pass level route
+(ops/fm_trie.py); rank_stream carries `backward_search_sorted`, the
+count query over sorted k-mer code rows.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from psi_tpu.fmindex import FMIndex
+from psi_tpu_torch.fmindex import FMIndex
 from psi_tpu_torch import _build
 
 SBLOCK = 32            # text positions per checkpoint block
@@ -130,15 +137,30 @@ _RANK4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p]
 
 
-def _rank4_plain(payloadT: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def _match_word(pw: list, c) -> torch.Tensor:
+    """int64 match word of char(s) c: the AND over the three bit planes
+    of the plane or its complement, chosen by the bits of c (an int, or
+    a tensor of chars shaped like the planes)."""
+    match = torch.full_like(pw[0], _U32)
+    for p in range(3):
+        if isinstance(c, int):
+            bit = (c >> p) & 1
+            match &= pw[p] if bit else (~pw[p] & _U32)
+        else:
+            bit = ((c >> p) & 1).bool()
+            match &= torch.where(bit, pw[p], ~pw[p] & _U32)
+    return match
+
+
+def rank4_plain(payloadT: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of csrc/rank4.cu: int32 [4, M] ranks of
+    chars 1..4 at each position."""
     cols = payloadT[:, (pos >> 5).long()]           # [16, M]
     pw = [cols[6 + p].long() & _U32 for p in range(3)]
     below = below_mask(pos)
     out = []
     for c in range(1, 5):
-        match = torch.full_like(pw[0], _U32)
-        for p in range(3):
-            match &= pw[p] if (c >> p) & 1 else (~pw[p] & _U32)
+        match = _match_word(pw, c)
         out.append(cols[c] + popcount32(match & below).to(torch.int32))
     return torch.stack(out)
 
@@ -147,7 +169,7 @@ def rank4_pair_plain(arrays: StreamArrays, lo: torch.Tensor,
                      hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of csrc/rank4_pair.cu: int32 [4, M] ranks of
     chars 1..4 at each lo and at each hi."""
-    return _rank4_plain(arrays.payloadT, lo), _rank4_plain(arrays.payloadT, hi)
+    return rank4_plain(arrays.payloadT, lo), rank4_plain(arrays.payloadT, hi)
 
 
 def rank4_pair_stream(arrays: StreamArrays, lo: torch.Tensor,
@@ -228,3 +250,117 @@ def compact_children(r4lo: torch.Tensor, r4hi: torch.Tensor,
 
 
 compact_children.launches = 0
+
+
+# --- rank4: ranks of A/C/G/T at one position array ---------------------
+
+_RANK4_ONE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
+def rank4_stream(arrays: StreamArrays, pos: torch.Tensor) -> torch.Tensor:
+    """Ranks of all four characters at every position of int32 `pos`
+    [M] in [0, n]: int32 [4, M]. psi_tpu's rank4_stream returns the same
+    numbers as [T, SLABS, 4, 8, 128] (`transpose(2,0,1,3,4).reshape(4,
+    -1)`) from any of its four kernel variants."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return rank4_plain(arrays.payloadT, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"rank4_stream: unsupported device {dev}")
+    _build.check_int32("rank4_stream", dev, payloadT=arrays.payloadT,
+                       pos=pos)
+    if pos.dim() != 1:
+        raise ValueError("rank4_stream: pos must be [M]")
+    m = pos.shape[0]
+    out = torch.empty((4, m), dtype=torch.int32, device=dev)
+    _build.launch(
+        "psi_rank4", _RANK4_ONE_ARGTYPES,
+        arrays.payloadT.data_ptr(), arrays.payloadT.shape[1],
+        pos.data_ptr(), out.data_ptr(), m, _build.stream_ptr(dev),
+    )
+    rank4_stream.launches += 1
+    return out
+
+
+rank4_stream.launches = 0
+
+
+# --- rank: rank(c_i, pos_i) per query -----------------------------------
+
+_RANK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p]
+
+
+def rank_plain(payloadT: torch.Tensor, chars: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of csrc/rank.cu: int32 [M] ranks of chars
+    c_i at positions pos_i."""
+    blk = (pos >> 5).long()
+    c = chars.long()
+    pw = [payloadT[6 + p, blk].long() & _U32 for p in range(3)]
+    match = _match_word(pw, c)
+    return payloadT[c, blk] + popcount32(match & below_mask(pos)).to(
+        torch.int32)
+
+
+def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
+                pos: torch.Tensor) -> torch.Tensor:
+    """Batched rank(c, i), the number of c in bwt[0:i], for int32 chars
+    [M] in 1..4 and int32 pos [M] in [0, n], in any order: int32 [M].
+    Neither range is checked on the device (psi_tpu's contract)."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return rank_plain(arrays.payloadT, chars, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"rank_stream: unsupported device {dev}")
+    _build.check_int32("rank_stream", dev, payloadT=arrays.payloadT,
+                       chars=chars, pos=pos)
+    if pos.dim() != 1 or chars.shape != pos.shape:
+        raise ValueError("rank_stream: chars and pos must be [M]")
+    m = pos.shape[0]
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    _build.launch(
+        "psi_rank", _RANK_ARGTYPES,
+        arrays.payloadT.data_ptr(), arrays.payloadT.shape[1],
+        chars.data_ptr(), pos.data_ptr(), out.data_ptr(), m,
+        _build.stream_ptr(dev),
+    )
+    rank_stream.launches += 1
+    return out
+
+
+rank_stream.launches = 0
+
+
+def backward_search_sorted(
+    arrays: StreamArrays,
+    codes: torch.Tensor,
+    lo0: torch.Tensor | None = None,
+    hi0: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SA ranges (lo, hi), int32 [N] each, of k-mers given as int32
+    code rows [N, k] (ACGT codes 1..4), fed column 0 first as psi_tpu's
+    backward_search_sorted feeds them; lo0/hi0 optionally seed the
+    search (ftab ranges). Each column is one LF step, two rank_stream
+    launches: lo' = C[c] + rank(c, lo), and the same for hi. Empty
+    ranges keep stepping, so lo == hi there at a route-specific value.
+
+    psi_tpu wants the rows sorted and pads them to whole tiles; its
+    kernel walks payload windows. Here rows may come in any order and
+    are not padded: after the first step the positions are scattered
+    whatever the row order, and each rank is its own gather."""
+    dev = codes.device
+    n_rows = codes.shape[0]
+    if lo0 is None:
+        lo0 = torch.zeros(n_rows, dtype=torch.int32, device=dev)
+    if hi0 is None:
+        hi0 = torch.full((n_rows,), arrays.n, dtype=torch.int32, device=dev)
+    cols = codes.t().contiguous()                 # [k, N], one row a step
+    base = arrays.C[cols.long()]                  # C[c] of every step
+    lo, hi = lo0, hi0
+    for j in range(cols.shape[0]):
+        lo = base[j] + rank_stream(arrays, cols[j], lo)
+        hi = base[j] + rank_stream(arrays, cols[j], hi)
+    return lo, hi

@@ -20,6 +20,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from psi_tpu_torch.device import resolve
 from psi_tpu_torch.ops import fm_fused, fm_stream
 from psi_tpu_torch.ops.fm_stream import StreamArrays
 
@@ -56,7 +57,7 @@ def build_schedule(
     loaded, else vectorized NumPy. `frontier_level` > 0 also returns that
     level's frontier prefix values (for ftab seeding)."""
     keys = np.asarray(keys, dtype=np.uint64)
-    from psi_tpu import native
+    from psi_tpu_torch import native
 
     nat = (
         native.trie_schedule(keys, k, frontier_level) if len(keys) else None
@@ -162,13 +163,15 @@ def prepare(
     keys: np.ndarray,
     k: int,
     ftab: np.ndarray | None = None,
-    device: torch.device = torch.device("cpu"),
+    device: torch.device | str | None = None,
     npad: int | None = None,
 ) -> PreparedTrie:
-    """Host schedule build + padding + upload for `trie_search`. Safe to
-    call from a producer thread: on CUDA the uploads are synchronized
-    before returning, so they are complete whichever stream the
-    consumer later reads them on."""
+    """Host schedule build + padding + upload for `trie_search`, to the
+    card unless `device` names another. Safe to call from a producer
+    thread: on CUDA the uploads are synchronized before returning, so
+    they are complete whichever stream the consumer later reads them
+    on."""
+    device = resolve("cuda") if device is None else torch.device(device)
     p = 0
     if ftab is not None:
         p = (int(ftab.shape[0]).bit_length() - 1) // 2
@@ -218,12 +221,16 @@ def _trie_device(
     lo0: torch.Tensor | None = None,
     hi0: torch.Tensor | None = None,
     fused: bool = True,
+    pair: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Leaf (lo, hi) in pattern order, on the schedule's device.
     `fused` (psi_tpu's argument of the same name) picks the one-kernel
     level route (csrc/trie_level.cu, the main path); False runs the
-    two-pass rank4_pair + compact route that psi_tpu takes for indexes
-    past its VMEM budget."""
+    two-pass route that psi_tpu takes for indexes past its VMEM budget:
+    per level, the ranks of A/C/G/T at every lo and hi, then
+    compact_children. `pair` (psi_tpu's PSI_RANK4_PAIR) ranks lo and hi
+    in one rank4_pair launch; False ranks them in two rank4_stream
+    launches."""
     dev = parents.device
     npad = parents.shape[1]
     if lo0 is None:
@@ -234,7 +241,11 @@ def _trie_device(
         return fm_fused.trie_fused(arrays, parents, chars, lo0, hi0)
     lo, hi = lo0, hi0
     for j in range(parents.shape[0]):
-        r4lo, r4hi = fm_stream.rank4_pair_stream(arrays, lo, hi)
+        if pair:
+            r4lo, r4hi = fm_stream.rank4_pair_stream(arrays, lo, hi)
+        else:
+            r4lo = fm_stream.rank4_stream(arrays, lo)
+            r4hi = fm_stream.rank4_stream(arrays, hi)
         lo, hi = fm_stream.compact_children(
             r4lo, r4hi, parents[j], chars[j], arrays.C
         )
@@ -248,15 +259,17 @@ def trie_search(
     ftab: np.ndarray | None = None,
     prepared: PreparedTrie | None = None,
     fused: bool = True,
+    pair: bool = True,
 ) -> tuple[np.ndarray, np.ndarray]:
     """SA ranges for sorted distinct packed keys. Returns (lo, hi) int32
     [N] in key order (empty ranges have lo == hi at an unspecified
     value). With `ftab` the level-p frontier is seeded from the table;
-    pass `prepared` to reuse a plan from `prepare`."""
+    pass `prepared` to reuse a plan from `prepare`. `fused` and `pair`
+    pick the level route (`_trie_device`)."""
     if prepared is None:
         prepared = prepare(keys, k, ftab, device=arrays.payloadT.device)
     lo, hi = _trie_device(arrays, prepared.parents, prepared.chars,
-                          prepared.lo0, prepared.hi0, fused=fused)
+                          prepared.lo0, prepared.hi0, fused=fused, pair=pair)
     lo = lo.cpu().numpy()[prepared.leaf_perm]
     hi = hi.cpu().numpy()[prepared.leaf_perm]
     return lo, hi

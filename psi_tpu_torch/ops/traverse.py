@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from psi_tpu.graph import Graph
+from psi_tpu_torch.graph import Graph
 
 #: largest WalkTree (total nodes) built before the route gives up
 NODE_CAP = 1 << 23
@@ -50,7 +50,7 @@ def enumerate_walks(
 ) -> WalkTree | None:
     """Host enumeration of the unpruned k-step state tree. Returns None
     when the tree exceeds `node_cap` nodes."""
-    from psi_tpu.ops.kmers import ACGT_CODE
+    from psi_tpu_torch.ops.kmers import ACGT_CODE
 
     codes = ACGT_CODE[graph.labels].astype(np.int64)
     codes[codes < 0] = 4

@@ -1,41 +1,55 @@
-"""SeedFinder on PyTorch: psi_tpu's host lifecycle, this package's
-device routes.
+"""SeedFinder on PyTorch (counterpart of psi_tpu/seed_finder.py).
 
-`SeedFinder` subclasses psi_tpu.seed_finder.SeedFinder and keeps its
-path picking, path index, uncovered loci, seeding, join and emission. It
-replaces every method that `seeds_all_arrays` and `prepare_onpath` reach
-that imports jax or psi_tpu.ops:
+The host lifecycle is psi_tpu's, copied: path picking and indexing,
+uncovered loci and their persistence, seeding and the reads-side index,
+the seed join and emission. The device routes are this package's:
 
   * on-path: distinct seed k-mers -> host trie schedule (`prepare`) ->
     ftab-seeded frontier -> level kernels -> counts download ->
     expand + locate on the device at the exact total -> gpos download ->
-    psi_tpu's join (native psi_emit_join when loaded);
+    the join (native psi_emit_join when the host library is loaded);
   * off-path: the host WalkTree, built once per loci set.
 
-One device only. What this package does not port yet raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+One device only; the card unless `device` names the CPU. What this
+package does not port yet raises NotImplementedError naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+import threading
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from psi_tpu.seed import SEED_DTYPE
-from psi_tpu.seed_finder import SeedFinder as _HostSeedFinder
-from psi_tpu.stats import SeedFinderStats
-
+from psi_tpu_torch.device import resolve
+from psi_tpu_torch.graph import Graph, Position
+from psi_tpu_torch.graphiter import BacktrackerIter, BFSIter, HaplotyperIter
+from psi_tpu_torch.graphiter import extend_to_k
 from psi_tpu_torch.ops import fm as fm_ops
 from psi_tpu_torch.ops import fm_stream, fm_trie
 from psi_tpu_torch.ops import traverse as trav
+from psi_tpu_torch.pathset import PathIndex, get_uniq_haplotype
+from psi_tpu_torch.pathutil import Path, trim_back
+from psi_tpu_torch.records import Records, SeedSet, SeedsIndex, seeding
+from psi_tpu_torch.seed import SEED_DTYPE, Seed
+from psi_tpu_torch.stats import NoStats, ProgressEnum, SeedFinderStats
+
+_NO_DINDEX = (
+    "the distance index (-m/-M > 0) is not ported yet "
+    "(ROADMAP.md Queue 1, item 9)"
+)
 
 
-class SeedFinder(_HostSeedFinder):
+class SeedFinder:
+    """(ref: seed_finder.hpp:930-942 ctor; query methods are const /
+    side-effect-free so chunks can be processed concurrently)."""
+
     def __init__(
         self,
-        graph,
+        graph: Graph,
         seed_len: int,
         gocc_threshold: int = 0,
         max_mem: int = 0,
@@ -43,7 +57,7 @@ class SeedFinder(_HostSeedFinder):
         stats: Optional[SeedFinderStats] = None,
         rng_seed: int = 0,
         devices: Optional[object] = None,
-        device: torch.device = torch.device("cpu"),
+        device: torch.device | str | None = None,
     ):
         if devices is not None and str(devices) != "1":
             raise NotImplementedError(
@@ -59,31 +73,422 @@ class SeedFinder(_HostSeedFinder):
                 "MEM queries (--max-mem) are not ported yet "
                 "(ROADMAP.md Queue 1, item 8)"
             )
-        super().__init__(
-            graph, seed_len, gocc_threshold=gocc_threshold, max_mem=max_mem,
-            seed_mismatches=seed_mismatches, stats=stats, rng_seed=rng_seed,
-            devices=devices,
-        )
-        self.device = torch.device(device)
+        #: the query device: the card unless the caller names the CPU
+        self.device = resolve("cuda") if device is None else torch.device(device)
+        self.graph = graph
+        self.seed_len = seed_len
+        self.gocc_threshold = gocc_threshold
+        self.max_mem = max_mem
+        self.seed_mismatches = seed_mismatches
+        self.stats = stats if stats is not None else NoStats()
+        self.pindex = PathIndex(graph)
+        self.starting_loci: List[Position] = []
+        self.d = (0, 0)
+        self._rng_seed = rng_seed
+        # device-side caches (built lazily)
+        self._fm_arrays = None
+        self._path_map = None
+        self._map_arrays = None
+        self._stream_arrays = None
+        self._ftab_np = None
+        self._trav_tree = None  # (fingerprint, WalkTree)
+        self._loci_np = None    # (n, (node ids, offsets))
+        self._prep_lock = threading.Lock()
 
-    # --- routes: one device, trie search + device chain, host WalkTree.
-    # Inherited callers of these get the answers of this package's one
-    # route without importing jax.
-    def _get_mesh(self):
-        return None
+    # === path picking =======================================================
+    def _set_context(self, context: int, patched: bool) -> int:
+        """(ref: seed_finder.hpp:1772-1787)"""
+        if not patched:
+            context = 0
+        if patched and context == 0:
+            context = self.seed_len
+        self.pindex.set_context(context)
+        return context
 
-    def _stream_enabled(self) -> bool:
-        return True
+    def pick_paths(
+        self,
+        n: int,
+        patched: bool = True,
+        context: int = 0,
+        progress: Optional[Callable[[str, int], None]] = None,
+    ):
+        """Pick n paths per region / reference path
+        (ref: seed_finder.hpp:1138-1167)."""
+        if n == 0:
+            return
+        if self.graph.get_path_count() == 0:
+            raise RuntimeError("no reference path found in the input graph")
+        self.stats.set_progress(ProgressEnum.SELECT_PATHS)
+        with self.stats.timeit_ts("pick-paths"):
+            context = self._set_context(context, patched)
+            from psi_tpu_torch import native
 
+            if native.available() and not os.environ.get("PSI_PY_PICK"):
+                region_starts = np.array(
+                    [int(nodes[0]) for _, (name, nodes) in
+                     self.graph.for_each_path()],
+                    dtype=np.int64,
+                )
+                res = native.pick_paths(
+                    np.diff(self.graph.label_offsets),
+                    self.graph.out_indptr,
+                    self.graph.out_indices,
+                    region_starts,
+                    n, context, patched,
+                    np.random.RandomState(self._rng_seed),
+                )
+                if res is not None:
+                    indptr, nodes_flat, lefts, rights = res
+                    for i in range(len(lefts)):
+                        self.pindex.push_back(
+                            Path(
+                                self.graph,
+                                nodes_flat[indptr[i]: indptr[i + 1]].tolist(),
+                                int(lefts[i]),
+                                int(rights[i]),
+                            )
+                        )
+                    return
+            hp = HaplotyperIter(
+                self.graph, rng=np.random.RandomState(self._rng_seed)
+            )
+            for path_rank, (name, nodes) in self.graph.for_each_path():
+                start = int(nodes[0])
+                hp.reset(start)
+                for i in range(n):
+                    if progress:
+                        progress(name, i + 1)
+                    get_uniq_haplotype(self.pindex, hp, context, patched)
+
+    def _reset_index_caches(self):
+        self._build_path_map()
+        self._fm_arrays = None
+        self._map_arrays = None
+        self._stream_arrays = None
+        self._ftab_np = None
+
+    def index_paths(self):
+        """(ref: seed_finder.hpp:1169-1176)"""
+        self.stats.set_progress(ProgressEnum.CREATE_PINDEX)
+        with self.stats.timeit_ts("index-paths"):
+            self.pindex.create_index()
+            self._reset_index_caches()
+
+    def _build_path_map(self):
+        """Flat arrays mapping a global forward path position to
+        (node_id, node_offset): the batched equivalent of
+        Path::rank/select (ref: pathindex.hpp:360-416)."""
+        pset = self.pindex.get_paths_set()
+        lengths = np.array([p.get_sequence_len() for p in pset], dtype=np.int64)
+        seq_off = np.zeros(len(pset) + 1, dtype=np.int64)
+        np.cumsum(lengths, out=seq_off[1:])
+        starts_l, ids_l, base_l = [], [], []
+        for pidx, path in enumerate(pset):
+            node_starts = path._node_starts()[:-1] + seq_off[pidx]
+            starts_l.append(node_starts)
+            ids_l.append(np.asarray(path.get_nodes(), dtype=np.int64))
+            base = np.zeros(len(path.get_nodes()), dtype=np.int64)
+            if len(base):
+                base[0] = path.get_head_offset()
+            base_l.append(base)
+        self._path_map = {
+            "lengths": lengths,
+            "seq_off": seq_off,
+            "starts": np.concatenate(starts_l) if starts_l else np.zeros(0, np.int64),
+            "ids": np.concatenate(ids_l) if ids_l else np.zeros(0, np.int64),
+            "base": np.concatenate(base_l) if base_l else np.zeros(0, np.int64),
+        }
+
+    # === uncovered loci =====================================================
+    def add_start(self, node_id: int, offset: int = None):
+        if offset is None:
+            self.starting_loci.append(node_id)  # Position instance
+        else:
+            self.starting_loci.append(Position(node_id, offset))
+        self.stats.total_loci = len(self.starting_loci)
+
+    def get_starting_loci(self) -> List[Position]:
+        return self.starting_loci
+
+    def set_starting_loci(self, loci):
+        self.starting_loci = list(loci)
+
+    def add_uncovered_loci(self, step: int = 1):
+        """Detect loci whose k-context is not fully covered by the path set
+        (exact mirror of ref: seed_finder.hpp:1481-1541). Uses the native
+        OpenMP scanner (csrc/host/psi_uncovered.cpp) when available."""
+        pathset = self.pindex.get_paths_set()
+        if len(pathset) == 0:
+            self.add_all_loci(step)
+            return
+        self.stats.set_progress(ProgressEnum.FIND_UNCOVERED)
+
+        from psi_tpu_torch import native
+
+        if native.available():
+            with self.stats.timeit_ts("find-uncovered"):
+                paths_nodes = []
+                paths_indptr = [0]
+                for p in pathset:
+                    paths_nodes.extend(p.get_nodes())
+                    paths_indptr.append(len(paths_nodes))
+                res = native.uncovered_loci(
+                    np.diff(self.graph.label_offsets),
+                    self.graph.out_indptr,
+                    self.graph.out_indices,
+                    np.asarray(paths_nodes, dtype=np.int64),
+                    np.asarray(paths_indptr, dtype=np.int64),
+                    self.seed_len,
+                    step,
+                )
+                if res is not None:
+                    node_ids, offsets = res
+                    for nid, off in zip(node_ids, offsets):
+                        self.add_start(int(nid), int(off))
+                    return
+        self._add_uncovered_loci_py(step)
+
+    def _add_uncovered_loci_py(self, step: int = 1):
+        pathset = self.pindex.get_paths_set()
+        with self.stats.timeit_ts("find-uncovered"):
+            g = self.graph
+            k = self.seed_len
+            bt = BacktrackerIter(g)
+            trav_path = Path(g)
+            bv_starts = np.zeros(g.max_node_len(), dtype=bool)
+
+            for rank in range(1, g.node_count + 1):
+                nid = g.rank_to_id(rank)
+                label_len = g.node_length(nid)
+                offset = label_len
+
+                bt.reset(nid)
+                while not bt.at_end() and offset != 0:
+                    extend_to_k(trav_path, bt, offset - 1 + k)
+                    current_path = None
+                    if trav_path.get_sequence_len() >= k:
+                        current_path = Path(
+                            g, list(trav_path.get_nodes()),
+                            trav_path.left, trav_path.right,
+                        )
+                    while (
+                        current_path is not None
+                        and current_path.get_sequence_len() != 0
+                        and not pathset.covered_by(current_path.get_nodes())
+                    ):
+                        trimmed_len = current_path.get_sequence_len() - g.node_length(
+                            current_path.get_nodes()[-1]
+                        )
+                        if trimmed_len <= k - 1:
+                            offset = 0
+                            break
+                        offset = trimmed_len - k + 1
+                        trim_back(current_path)
+                    f = offset
+                    while (
+                        f < label_len
+                        and f + k < trav_path.get_sequence_len() + 1
+                    ):
+                        bv_starts[f] = True
+                        f += step
+
+                    bt.backtrack()
+                    trim_back(trav_path, bt.value if bt.value is not None else 0)
+
+                for f in range(label_len):
+                    if bv_starts[f]:
+                        bv_starts[f] = False
+                        self.add_start(nid, f)
+
+                trav_path.clear()
+
+    def add_all_loci(self, step: int = 1):
+        """Step-preserving all-loci fallback via BFS levels
+        (ref: seed_finder.hpp:1543-1585)."""
+        self.stats.set_progress(ProgressEnum.FIND_UNCOVERED)
+        with self.stats.timeit_ts("find-uncovered"):
+            bfs = BFSIter(self.graph)
+            prenode_remain = 0
+            remain_estimate = 0
+            prenode_level = 0
+            while not bfs.at_end():
+                if prenode_level != bfs.level():
+                    prenode_remain = remain_estimate
+                    remain_estimate = 0
+                    prenode_level = bfs.level()
+                seq_len = self.graph.node_length(bfs.value)
+                cursor = (step - prenode_remain) % step
+                while cursor < seq_len:
+                    self.add_start(bfs.value, cursor)
+                    cursor += step
+                if step - prenode_remain > seq_len:
+                    new_remain = prenode_remain + seq_len
+                else:
+                    new_remain = (seq_len - step + prenode_remain) % step
+                if remain_estimate < new_remain:
+                    remain_estimate = new_remain
+                bfs.next()
+
+    def get_nof_uniq_nodes(self) -> int:
+        return len({l.node_id() for l in self.starting_loci})
+
+    # === distance index: only insert size 0 (no index) is ported ============
     @staticmethod
-    def _device_locate_enabled() -> bool:
-        return True
+    def _dindex_range(dmin: int, dmax: int):
+        """psi_tpu's normalisation of an insert-size range: None when it
+        asks for no distance index, else (dmin, dmax), which this
+        package cannot serve yet."""
+        if dmin == 0 or (dmax != 0 and dmax < dmin):
+            return None
+        raise NotImplementedError(_NO_DINDEX)
 
-    @staticmethod
-    def _chain_eager_enabled() -> bool:
+    def create_distance_index(
+        self, dmin: int, dmax: int, per_component: bool = True
+    ):
+        """(ref: seed_finder.hpp:1193-1265)"""
+        self._dindex_range(dmin, dmax)
+
+    def save_distance_index(self, prefix: str) -> bool:
+        if self.d == (0, 0):
+            return True
+        raise NotImplementedError(_NO_DINDEX)
+
+    def open_distance_index(self, prefix: str, dmin: int = 0, dmax: int = 0) -> bool:
+        if dmin > 0:
+            raise NotImplementedError(_NO_DINDEX)
+        self.d = (0, 0)
         return False
 
-    # --- device state caches --------------------------------------------
+    # === artifact paths (naming parity, ref: seed_finder.hpp:877-892) ======
+    @staticmethod
+    def get_dindex_path(prefix: str, dmin: int, dmax: int) -> str:
+        return f"{prefix}_dist_mat_m{dmin}M{dmax}.npz"
+
+    @staticmethod
+    def get_sloci_filepath(prefix: str, seed_len: int, step: int) -> str:
+        return f"{prefix}_loci_e{step}l{seed_len}"
+
+    # === starting loci persistence ==========================================
+    def save_starts(self, prefix: str, seed_len: int, step: int) -> bool:
+        """Store in *external* (coordinate) ids
+        (ref: seed_finder.hpp:1659-1679)."""
+        path = self.get_sloci_filepath(prefix, seed_len, step)
+        self.stats.set_progress(ProgressEnum.WRITE_STARTS)
+
+        def coord(nid):  # identity for ids outside the graph (mirrors gum)
+            return self.graph.coordinate_id(nid) if self.graph.has_node(nid) else nid
+
+        with self.stats.timeit_ts("save-starts"):
+            arr = np.array(
+                [(coord(l.node_id()), l.offset()) for l in self.starting_loci],
+                dtype=np.int64,
+            ).reshape(-1, 2)
+            np.save(path + ".npy", arr)
+        return True
+
+    def open_starts(self, prefix: str, seed_len: int, step: int) -> bool:
+        path = self.get_sloci_filepath(prefix, seed_len, step) + ".npy"
+        if not os.path.exists(path):
+            return False
+        self.stats.set_progress(ProgressEnum.LOAD_STARTS)
+
+        def internal(cid):
+            try:
+                return self.graph.id_by_coordinate(cid)
+            except KeyError:
+                return cid
+
+        with self.stats.timeit_ts("load-starts"):
+            arr = np.load(path)
+            self.starting_loci = [
+                Position(internal(int(c)), int(o)) for c, o in arr
+            ]
+        return True
+
+    # === full index lifecycle ==============================================
+    def create_path_index(
+        self,
+        n: int,
+        patched: bool = True,
+        context: int = 0,
+        step_size: int = 1,
+        dmin: int = 0,
+        dmax: int = 0,
+        per_component: bool = True,
+    ):
+        """(ref: seed_finder.hpp:1330-1355)"""
+        self._dindex_range(dmin, dmax)
+        self.pick_paths(n, patched, context)
+        self.index_paths()
+        self.add_uncovered_loci(step_size)
+
+    def serialize_path_index(self, prefix: str, step_size: int = 1) -> bool:
+        if not prefix:
+            return False
+        self.stats.set_progress(ProgressEnum.WRITE_PINDEX)
+        with self.stats.timeit_ts("save-pindex"):
+            self.pindex.save(prefix)
+        return (
+            self.save_starts(prefix, self.seed_len, step_size)
+            and self.save_distance_index(prefix)
+        )
+
+    def load_path_index(
+        self,
+        prefix: str,
+        context: int = 0,
+        step_size: int = 1,
+        dmin: int = 0,
+        dmax: int = 0,
+    ) -> bool:
+        """Transparently rebuilds missing starts artifacts
+        (ref: seed_finder.hpp:1396-1413)."""
+        if not prefix:
+            return False
+        self._dindex_range(dmin, dmax)
+        self.stats.set_progress(ProgressEnum.LOAD_PINDEX)
+        with self.stats.timeit_ts("load-pindex"):
+            self.pindex.set_context(context)
+            if not self.pindex.load(prefix):
+                return False
+            self._reset_index_caches()
+        if not self.open_starts(prefix, self.seed_len, step_size):
+            self.add_uncovered_loci(step_size)
+            self.save_starts(prefix, self.seed_len, step_size)
+        return True
+
+    # === per-chunk query machinery ==========================================
+    def get_seeds(self, reads: Records, distance: int = 0) -> SeedSet:
+        """(ref: seed_finder.hpp:1099-1109; distance==0 -> non-overlapping)"""
+        self.stats.get_this_thread_stats().set_progress(ProgressEnum.SEED_CHUNK)
+        with self.stats.timeit_ts("seeding"):
+            if distance == 0:
+                distance = self.seed_len
+            return seeding(reads, self.seed_len, distance)
+
+    def index_reads(self, seeds: SeedSet) -> SeedsIndex:
+        """(ref: seed_finder.hpp:1089-1097)"""
+        self.stats.get_this_thread_stats().set_progress(ProgressEnum.INDEX_CHUNK)
+        with self.stats.timeit_ts("index-reads"):
+            return SeedsIndex(seeds)
+
+    #: largest prefix-table depth (4**p SA-range rows; 11 -> 32 MB)
+    FTAB_MAX_BITS = int(os.environ.get("PSI_FTAB_MAX_BITS", 11))
+
+    def _ftab_bits(self) -> int:
+        """Prefix-table depth: one ftab gather replaces the first p LF
+        steps of every k-mer query. Sized so the table never dwarfs the
+        text (p <= log4 n) and never exceeds the seed length."""
+        env = os.environ.get("PSI_FTAB_BITS")
+        if env is not None:
+            # clamp: depths beyond the seed length are never consulted,
+            # and 4**p rows past ~13 would swamp host memory
+            return max(min(int(env), self.seed_len, 13), 0)
+        n = self.pindex.fm.size
+        log4 = max((int(n).bit_length() - 1) // 2, 0)
+        return max(min(self.FTAB_MAX_BITS, self.seed_len, log4), 0)
+
+    # --- device state caches ---------------------------------------------
     def _get_fm_arrays(self):
         if self._fm_arrays is None and self.pindex.fm is not None:
             self._fm_arrays = fm_ops.to_device(self.pindex.fm, self.device)
@@ -117,6 +522,22 @@ class SeedFinder(_HostSeedFinder):
         return self._map_arrays
 
     # --- on-path route ----------------------------------------------------
+    def _onpath_search_keys(self, index: SeedsIndex):
+        """The deterministic key pipeline of the on-path route: distinct
+        seed k-mers (+ Hamming-ball expansion under --mismatches) and
+        the maps back to seed groups."""
+        uniq_keys, uniq_start = np.unique(index.sorted_keys, return_index=True)
+        if self.seed_mismatches:
+            from psi_tpu_torch.ops.kmers import expand_hamming
+
+            search_keys, origin = expand_hamming(
+                uniq_keys, self.seed_len, self.seed_mismatches
+            )
+        else:
+            search_keys = uniq_keys
+            origin = np.arange(len(uniq_keys), dtype=np.int64)
+        return uniq_keys, uniq_start, search_keys, origin
+
     def prepare_onpath(self, index) -> None:
         """Build and upload the chunk's trie plan; runs on the CLI's
         producer thread, overlapped with the previous chunk's queries."""
@@ -182,6 +603,100 @@ class SeedFinder(_HostSeedFinder):
 
         return counts, emit, occurrences
 
+    def _chain_join(self, counts, emit, inv, occ_start_u, gpos_stream):
+        """The deterministic seed join: the device's gpos stream is
+        ordered by (pattern slot, SA rank); per-uniq segments are located
+        from counts alone, then mapped to (node, offset) by one host
+        searchsorted.
+
+        When the native library is loaded the join is deferred: the raw
+        (occ_start_u, gpos_stream, inv) triple is returned for
+        psi_emit_join to fuse with the seed cross-product in one
+        OpenMP pass (the consumer in _seeds_on_paths_impl dispatches
+        on the "raw" tag)."""
+        from psi_tpu_torch import native
+
+        if native.available():
+            return ("raw", occ_start_u, gpos_stream, inv, emit)
+        pm = self._path_map
+        emit_idx = np.nonzero(emit)[0]
+        widths = counts[emit]
+        total = int(widths.sum())
+        occ_rows = np.repeat(np.arange(len(widths)), widths)
+        within = np.arange(total) - np.repeat(
+            np.cumsum(widths) - widths, widths
+        )
+        u_per = inv[emit_idx][occ_rows]
+        gpos = gpos_stream[occ_start_u[u_per] + within]
+        entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
+        node_ids = pm["ids"][entry]
+        node_offs = gpos - pm["starts"][entry] + pm["base"][entry]
+        return emit_idx, occ_rows, node_ids, node_offs
+
+    def _emit_join_native(self, counts, emit, inv, origin, occ_start_u,
+                          gpos_stream, index, seeds, uniq_start,
+                          uniq_end, k):
+        """Fused emission for the chain route: one native pass walks
+        each emitted row's gpos segment, binary-searches the path map,
+        and writes the seed cross-product directly as SEED_DTYPE rows.
+        Row order is identical to the NumPy join + cross-product."""
+        from psi_tpu_torch import native
+
+        pm = self._path_map
+        emit_idx = np.nonzero(emit)[0]
+        widths = counts[emit_idx].astype(np.int64)
+        ns = (uniq_end - uniq_start)[origin[emit_idx]].astype(np.int64)
+        rows_per = widths * ns
+        out_off = np.zeros(len(emit_idx) + 1, dtype=np.int64)
+        np.cumsum(rows_per, out=out_off[1:])
+        total = int(out_off[-1])
+        out = np.empty(total, dtype=SEED_DTYPE)
+        if total:
+            ok = native.emit_join(
+                counts, emit_idx, inv, origin, occ_start_u,
+                gpos_stream, pm["starts"], pm["ids"], pm["base"],
+                uniq_start, uniq_end, index.seed_ids, seeds.seedmap,
+                int(seeds.rec_offset), int(k),
+                out_off, out.view(np.int64).reshape(total, 6),
+            )
+            if not ok:
+                # not an assert: under python -O a stripped assert would
+                # silently emit the uninitialized np.empty rows as hits
+                raise RuntimeError("native emit_join vanished mid-run")
+        return out
+
+    # === seeds on paths (FM route) ==========================================
+    def seeds_on_paths(
+        self,
+        seeds: SeedSet,
+        index: SeedsIndex,
+        callback: Callable[[Seed], None],
+    ):
+        """Batched equivalent of the dual-iterator kmer_exact_matches
+        (ref: seed_finder.hpp:1426-1457 driving index_iter.hpp:808-852):
+        every distinct seed k-mer is counted/located in the path FM index
+        in one device batch; hits are the cross product of path
+        occurrences x matching seeds, gocc = path-side occurrence count,
+        filtered by gocc_threshold.
+        """
+        context = self.pindex.get_context()
+        if context != 0 and context < self.seed_len:
+            raise RuntimeError("seed length should not be larger than context size")
+        if self.pindex.fm is None or self.pindex.fm.size == 0:
+            return
+        self.stats.set_progress(ProgressEnum.READY)
+        tstats = self.stats.get_this_thread_stats()
+        tstats.set_progress(ProgressEnum.FIND_ON_PATHS)
+        with self.stats.timeit_ts("seeds-on-paths"):
+            arr = self._seeds_on_paths_impl(seeds, index)
+            if arr is not None:
+                _emit_rows(arr, callback)
+
+    def seeds_on_paths_arrays(self, seeds, index):
+        """Columnar variant: structured SEED_DTYPE array (bulk path)."""
+        with self.stats.timeit_ts("seeds-on-paths"):
+            return self._seeds_on_paths_impl(seeds, index)
+
     def _seeds_on_paths_impl(self, seeds, index):
         tstats = self.stats.get_this_thread_stats()
         k = self.seed_len
@@ -237,7 +752,41 @@ class SeedFinder(_HostSeedFinder):
             "MEM queries are not ported yet (ROADMAP.md Queue 1, item 8)"
         )
 
-    # --- off-path route: the host WalkTree --------------------------------
+    # === seeds off paths: the host WalkTree =================================
+    def seeds_off_paths(
+        self,
+        seeds: SeedSet,
+        index: SeedsIndex,
+        callback: Callable[[Seed], None],
+        device: bool = True,
+    ):
+        """(ref: seed_finder.hpp:1703-1722 over traverser_bfs.hpp:72-164)"""
+        if not device:
+            raise NotImplementedError(
+                "the host frontier traversal is not ported yet "
+                "(ROADMAP.md Queue 1, item 4)"
+            )
+        self.stats.set_progress(ProgressEnum.READY)
+        tstats = self.stats.get_this_thread_stats()
+        tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
+        with self.stats.timeit_ts("seeds-off-path"):
+            if not self.starting_loci:
+                return
+            cols = self._traverse_device_columns(index)
+            if cols is not None:
+                for nid, noff, sid, gocc, L in zip(*(c.tolist() for c in cols)):
+                    callback(
+                        Seed(
+                            nid,
+                            noff,
+                            seeds.read_id(sid),
+                            seeds.read_offset(sid),
+                            L,
+                            gocc,
+                        )
+                    )
+            tstats.set_locus_idx(len(self.starting_loci))
+
     def _get_trav_tree(self):
         """Lazy WalkTree, fingerprinted on the loci set so a loci reload
         rebuilds it."""
@@ -262,15 +811,16 @@ class SeedFinder(_HostSeedFinder):
             self._trav_tree = (fp, tree)
         return tree
 
-    def _traverse_dispatch(self, index, g=None, sa=None, cap=None):
+    def _traverse_device_columns(self, index):
+        """(node, off, seed_id, gocc, len) columns of the off-path hits,
+        or None when there are no loci or seeds."""
         if not self.starting_loci or index.size == 0:
             return None
-        return ("tree", self._get_trav_tree())
+        return self._tree_columns(index, self._get_trav_tree())
 
-    def _traverse_collect(self, index, pending):
-        if pending is None:
-            return None
-        tree = pending[1]
+    def _tree_columns(self, index, tree):
+        """Probe the WalkTree with the chunk's sorted seed keys and expand
+        the surviving states into hit columns."""
         locus_idx, lo, hi, gd, ended, ended_len = trav.walks_match(
             tree, index.sorted_keys
         )
@@ -282,5 +832,97 @@ class SeedFinder(_HostSeedFinder):
             index, self.starting_loci, locus_idx, lo, hi, self.seed_len,
         )
 
-    def _traverse_device_columns(self, index):
-        return self._traverse_collect(index, self._traverse_dispatch(index))
+    def _get_loci_np(self):
+        """Host-side starting-loci arrays (cached per loci count)."""
+        n = len(self.starting_loci)
+        if self._loci_np is None or self._loci_np[0] != n:
+            sn = np.zeros(n, dtype=np.int32)
+            so = np.zeros(n, dtype=np.int32)
+            for i, l in enumerate(self.starting_loci):
+                sn[i] = l.node_id()
+                so[i] = l.offset()
+            self._loci_np = (n, (sn, so))
+        return self._loci_np[1]
+
+    @staticmethod
+    def _off_cols_to_arrays(seeds: SeedSet, cols):
+        if cols is None:
+            return None
+        nodes, offs, seed_sel, goccs, lens = cols
+        out = np.empty(len(nodes), dtype=SEED_DTYPE)
+        out["node_id"] = nodes
+        out["node_offset"] = offs
+        out["read_id"] = seeds.rec_offset + seeds.seedmap[seed_sel, 0]
+        out["read_offset"] = seeds.seedmap[seed_sel, 1]
+        out["match_len"] = lens
+        out["gocc"] = goccs
+        return out
+
+    def seeds_off_paths_arrays(self, seeds: SeedSet, index: SeedsIndex):
+        """Columnar off-path hits (structured SEED_DTYPE array)."""
+        with self.stats.timeit_ts("seeds-off-path"):
+            return self._off_cols_to_arrays(
+                seeds, self._traverse_device_columns(index)
+            )
+
+    def seeds_all_arrays(self, seeds: SeedSet, index: SeedsIndex,
+                         split: bool = False):
+        """Both routes, columnar; the bulk path used by the CLI. The
+        WalkTree is fetched (built once per loci set) before the on-path
+        route and probed after it, as psi_tpu dispatches its traversal
+        first. `split=True` returns (on_path, off_path) arrays instead of
+        the concatenation."""
+        tree = None
+        if self.starting_loci and index.size:
+            with self.stats.timeit_ts("seeds-off-path"):
+                tree = self._get_trav_tree()
+        parts = [self.seeds_on_paths_arrays(seeds, index)]
+        if tree is not None:
+            with self.stats.timeit_ts("seeds-off-path"):
+                tstats = self.stats.get_this_thread_stats()
+                tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
+                parts.append(self._off_cols_to_arrays(
+                    seeds, self._tree_columns(index, tree)
+                ))
+                tstats.set_locus_idx(len(self.starting_loci))
+        else:
+            parts.append(self.seeds_off_paths_arrays(seeds, index))
+        self.stats.get_this_thread_stats().inc_chunks_done()
+        if split:
+            empty = np.zeros(0, dtype=SEED_DTYPE)
+            return (
+                parts[0] if parts[0] is not None else empty,
+                parts[1] if parts[1] is not None else empty,
+            )
+        parts = [p for p in parts if p is not None and len(p)]
+        if not parts:
+            return np.zeros(0, dtype=SEED_DTYPE)
+        return np.concatenate(parts)
+
+    # === combined ===========================================================
+    def seeds_all(
+        self,
+        seeds: SeedSet,
+        index: SeedsIndex,
+        callback: Callable[[Seed], None],
+        device: bool = True,
+    ):
+        """(ref: seed_finder.hpp:1724-1743)"""
+        self.seeds_on_paths(seeds, index, callback)
+        self.seeds_off_paths(seeds, index, callback, device=device)
+        self.stats.get_this_thread_stats().inc_chunks_done()
+
+
+def _emit_rows(arr: np.ndarray, callback: Callable[[Seed], None]) -> None:
+    """Feed a structured SEED_DTYPE array through a per-hit callback."""
+    for row in arr:
+        callback(
+            Seed(
+                int(row["node_id"]),
+                int(row["node_offset"]),
+                int(row["read_id"]),
+                int(row["read_offset"]),
+                int(row["match_len"]),
+                int(row["gocc"]),
+            )
+        )

@@ -1,6 +1,7 @@
 """psi_tpu_torch's CUDA kernels against their plain PyTorch versions on
 the card. Every test here needs a CUDA device and skips without one; the
-file imports no jax, so on a GPU machine it runs on its own:
+file imports neither jax nor psi_tpu, so on a GPU machine it runs on its
+own:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -10,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from psi_tpu.fmindex import FMIndex
-from psi_tpu.graphiter import HaplotyperRandomIter
-from psi_tpu.pathutil import Path, sequence
-from psi_tpu.simulate import make_pangenome_graph
 from psi_tpu_torch import cli
+from psi_tpu_torch.fmindex import FMIndex
+from psi_tpu_torch.graphiter import HaplotyperRandomIter
+from psi_tpu_torch.pathutil import Path, sequence
+from psi_tpu_torch.simulate import make_pangenome_graph
 from psi_tpu_torch.ops import fm as fm_ops
 from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
 
@@ -86,6 +87,46 @@ def test_two_pass_kernels_match_plain(index, dev):
                                  prep.hi0, fused=True)
     torch.cuda.synchronize()
     assert torch.equal(lo, fused[0]) and torch.equal(hi, fused[1])
+
+
+def test_rank_kernels_match_plain(index, dev):
+    """rank4 and rank on every level's frontier of the unpaired two-pass
+    route, which must equal the fused route; then backward_search_sorted
+    from the ftab frontier, whose counts must equal the trie's."""
+    fm, keys, ftab = index
+    arr = fm_stream.build_stream_arrays(fm, dev)
+    prep = fm_trie.prepare(keys, K, ftab, device=dev)
+    lo, hi = prep.lo0, prep.hi0
+    for j in range(prep.parents.shape[0]):
+        n0 = fm_stream.rank4_stream.launches
+        r4 = (fm_stream.rank4_stream(arr, lo), fm_stream.rank4_stream(arr, hi))
+        assert fm_stream.rank4_stream.launches == n0 + 2
+        for got, pos in zip(r4, (lo, hi)):
+            assert torch.equal(got, fm_stream.rank4_plain(arr.payloadT, pos))
+        scattered = lo.flip(0)
+        n0 = fm_stream.rank_stream.launches
+        got = fm_stream.rank_stream(arr, prep.chars[j], scattered)
+        assert fm_stream.rank_stream.launches == n0 + 1
+        assert torch.equal(got, fm_stream.rank_plain(
+            arr.payloadT, prep.chars[j], scattered))
+        lo, hi = fm_stream.compact_children(*r4, prep.parents[j],
+                                            prep.chars[j], arr.C)
+    fused = fm_trie._trie_device(arr, prep.parents, prep.chars, prep.lo0,
+                                 prep.hi0, fused=True)
+    assert torch.equal(lo, fused[0]) and torch.equal(hi, fused[1])
+    p = 5
+    shifts = 2 * np.arange(K - 1, -1, -1, dtype=np.uint64)
+    codes = ((keys[:, None] >> shifts) & np.uint64(3)).astype(np.int32) + 1
+    rows = ftab[(keys >> np.uint64(2 * (K - p))).astype(np.int64)]
+    n0 = fm_stream.rank_stream.launches
+    blo, bhi = fm_stream.backward_search_sorted(
+        arr, torch.from_numpy(np.ascontiguousarray(codes[:, p:])).to(dev),
+        torch.from_numpy(np.ascontiguousarray(rows[:, 0])).to(dev),
+        torch.from_numpy(np.ascontiguousarray(rows[:, 1])).to(dev))
+    torch.cuda.synchronize()
+    assert fm_stream.rank_stream.launches == n0 + 2 * (K - p)
+    tlo, thi = fm_trie.trie_search(arr, keys, K, ftab=ftab)
+    np.testing.assert_array_equal((bhi - blo).cpu().numpy(), thi - tlo)
 
 
 def test_trie_search_matches_host_fm(index, dev):

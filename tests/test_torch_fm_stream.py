@@ -1,7 +1,10 @@
 """psi_tpu_torch.ops.fm_stream against psi_tpu.ops.fm_stream: the payload
-layouts, and the rank4_pair and compact kernels' plain versions against
-the Pallas kernels (interpret mode), on identical inputs given through
-psi_tpu_torch.convert. Everything is int32: equality is exact."""
+layouts; the plain versions of the rank4_pair, rank4, compact and rank
+kernels against the Pallas kernels (interpret mode, every variant); and
+backward_search_sorted against psi_tpu's, with and without ftab seeds.
+Inputs are identical, given through psi_tpu_torch.convert. Everything is
+int32: equality is exact, and for SA ranges (R3) `hi - lo` everywhere and
+`lo` where the range is not empty."""
 
 import importlib
 
@@ -12,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from psi_tpu.fmindex import FMIndex
+from psi_tpu.ops import fm as jfm
 from psi_tpu.ops import fm_stream as jfs
 from psi_tpu.ops import fm_trie as jtrie
 from psi_tpu_torch import convert
@@ -123,3 +127,117 @@ def test_compact_matches_pallas(fm, pallas_rank4, small_slabs):
     np.testing.assert_array_equal(lo2.numpy(), np.asarray(jlo))
     np.testing.assert_array_equal(hi2.numpy(), np.asarray(jhi))
     assert fm_stream.compact_children.launches == n0   # CPU: plain version
+
+
+def _flat4(r4):
+    """psi_tpu's [T, SLABS, 4, 8, 128] rank layout as [4, M]."""
+    return np.asarray(r4).transpose(2, 0, 1, 3, 4).reshape(4, -1)
+
+
+@pytest.mark.parametrize("variant", ["flat", "slab", "mxu", "resident"])
+def test_rank4_matches_pallas(fm, small_slabs, monkeypatch, variant):
+    """rank4_stream against each of psi_tpu's four rank4 kernels (the
+    resident one needs payload8, which this small text has), at sorted
+    and at scattered positions."""
+    ref = small_slabs.build_stream_arrays(fm)
+    assert ref.payload8 is not None
+    rng = np.random.RandomState(3)
+    lo, _ = _frontier(fm.size, rng)
+    scattered = rng.permutation(lo)
+    monkeypatch.setenv("PSI_RANK4", variant)
+    arr = convert.stream_arrays(ref, CPU)
+    n0 = fm_stream.rank4_stream.launches
+    for pos in (lo, scattered):
+        want = small_slabs.rank4_stream(ref, jnp.asarray(pos), interpret=True)
+        got = fm_stream.rank4_stream(arr, torch.from_numpy(pos))
+        np.testing.assert_array_equal(got.numpy(), _flat4(want))
+    assert fm_stream.rank4_stream.launches == n0       # CPU: plain version
+    for i in rng.choice(NPAD, 20, replace=False):
+        for c in range(1, 5):
+            assert got[c - 1, i] == fm.rank(c, int(scattered[i]))
+
+
+def test_compact_flat_matches_pallas(fm, pallas_rank4, small_slabs,
+                                     monkeypatch):
+    """compact_children against psi_tpu's flat-ring compact kernel
+    (PSI_COMPACT=flat), which computes what _compact_kernel does."""
+    ref, _, _, jr4lo, jr4hi = pallas_rank4
+    parent, char = _level_schedule(fm)
+    monkeypatch.setenv("PSI_COMPACT", "flat")
+    jlo, jhi = small_slabs.compact_children(
+        jr4lo, jr4hi, jnp.asarray(parent), jnp.asarray(char), ref.C,
+        interpret=True)
+    lo, hi = fm_stream.compact_children(
+        *(torch.from_numpy(np.ascontiguousarray(_flat4(r)))
+          for r in (jr4lo, jr4hi)),
+        torch.from_numpy(parent), torch.from_numpy(char),
+        torch.tensor(np.asarray(ref.C)))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+
+
+@pytest.mark.parametrize("order", ["sorted", "scattered"])
+def test_rank_matches_pallas(fm, small_slabs, order):
+    """rank_stream against psi_tpu's per-query rank kernel on a batch that
+    is not a whole tile, with positions over the whole text and n."""
+    ref = small_slabs.build_stream_arrays(fm)
+    rng = np.random.RandomState(9)
+    m = 3000
+    pos = rng.randint(0, fm.size + 1, size=m).astype(np.int32)
+    pos[:2] = (0, fm.size)
+    if order == "sorted":
+        pos = np.sort(pos)
+    chars = rng.randint(1, 5, size=m).astype(np.int32)
+    want = small_slabs.rank_stream(ref, jnp.asarray(chars), jnp.asarray(pos),
+                                   interpret=True)
+    n0 = fm_stream.rank_stream.launches
+    got = fm_stream.rank_stream(convert.stream_arrays(ref, CPU),
+                                torch.from_numpy(chars), torch.from_numpy(pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert fm_stream.rank_stream.launches == n0         # CPU: plain version
+    for i in rng.choice(m, 30, replace=False):
+        assert got[i] == fm.rank(int(chars[i]), int(pos[i]))
+
+
+@pytest.mark.parametrize("ftab_p", [0, 4])
+def test_backward_search_sorted_matches_pallas(fm, small_slabs, ftab_p):
+    """backward_search_sorted over sorted code rows, fed column 0 first,
+    from the root or from the ftab ranges of the first p columns."""
+    k = 10
+    rng = np.random.RandomState(12)
+    text = fm.codes[: fm.str_starts[1] - 1]
+    starts = rng.randint(0, len(text) - k, 700)
+    # fed first to last, a row spells its k-mer backwards in the text
+    present = text[starts[:, None] + np.arange(k)][:, ::-1]
+    present = present[(present >= 1).all(1) & (present <= 4).all(1)]
+    codes = np.concatenate([present, rng.randint(1, 5, (1300, k))])
+    weights = 4 ** np.arange(k - 1, -1, -1, dtype=np.int64)
+    keys = np.unique((codes.astype(np.int64) - 1) @ weights)
+    codes = (keys[:, None] // weights % 4 + 1).astype(np.int32)
+    ref = small_slabs.build_stream_arrays(fm)
+    lo0 = hi0 = None
+    if ftab_p:
+        ftab = jfm.build_ftab(fm, ftab_p)[keys >> (2 * (k - ftab_p))]
+        lo0 = np.ascontiguousarray(ftab[:, 0])
+        hi0 = np.ascontiguousarray(ftab[:, 1])
+    jlo, jhi = small_slabs.backward_search_sorted(
+        ref, jnp.asarray(codes[:, ftab_p:]),
+        None if lo0 is None else jnp.asarray(lo0),
+        None if hi0 is None else jnp.asarray(hi0), interpret=True)
+    n0 = fm_stream.rank_stream.launches
+    lo, hi = fm_stream.backward_search_sorted(
+        convert.stream_arrays(ref, CPU),
+        torch.from_numpy(np.ascontiguousarray(codes[:, ftab_p:])),
+        None if lo0 is None else torch.from_numpy(lo0),
+        None if hi0 is None else torch.from_numpy(hi0))
+    assert fm_stream.rank_stream.launches == n0         # CPU: plain version
+    jlo, jhi = np.asarray(jlo), np.asarray(jhi)
+    np.testing.assert_array_equal((hi - lo).numpy(), jhi - jlo)
+    found = jhi > jlo
+    assert found.sum() > 100
+    np.testing.assert_array_equal(lo.numpy()[found], jlo[found])
+    # and against the host FM index's own search
+    for i in rng.choice(len(keys), 40, replace=False):
+        s = "".join("ACGT"[c - 1] for c in codes[i])
+        want_lo, want_hi = fm.backward_search(s[::-1])
+        assert int(hi[i] - lo[i]) == want_hi - want_lo

@@ -1,8 +1,10 @@
 """psi_tpu_torch.ops.fm_trie / fm against psi_tpu.ops.fm_trie / fm: the
 host schedule, plain-wire prepare and ftab are array-equal; trie_search
 through both level routes equals psi_tpu's trie_search with and without
-its Pallas kernels (interpret mode), for fused 0 and 1; expand_locate
-equals _expand_locate_device. int32/int64 throughout: equality is exact."""
+its Pallas kernels (interpret mode), for fused 0 and 1, and the two-pass
+route with lo and hi ranked in separate launches (pair=False) equals
+psi_tpu's PSI_RANK4_PAIR=0 route; expand_locate equals
+_expand_locate_device. int32/int64 throughout: equality is exact."""
 
 import importlib
 
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from psi_tpu.fmindex import FMIndex
@@ -128,6 +131,34 @@ def test_trie_search_matches_psi_tpu(setup, small_kernels, monkeypatch,
         _eq(lo, want_lo)
         _eq(hi, want_hi)
     assert (want_hi > want_lo).sum() > 100
+
+
+def test_trie_search_unpaired_matches_psi_tpu(setup, small_kernels,
+                                             monkeypatch):
+    """pair=False (rank4_stream at lo, then at hi, then compact, per level)
+    against psi_tpu's scan route with PSI_RANK4_PAIR=0 on its Pallas
+    kernels; PSI_TRIE_FUSED=0 keeps psi_tpu off its fused kernel. The
+    variables are read while tracing, so jit caches are cleared first."""
+    fm, keys, ftab = setup
+    monkeypatch.setenv("PSI_RANK4_PAIR", "0")
+    monkeypatch.setenv("PSI_TRIE_FUSED", "0")
+    jax.clear_caches()
+    jarr = jfs.build_stream_arrays(fm)
+    prep = jtrie.prepare(keys, K, ftab, wire="plain", pack=False)
+    want_lo, want_hi = jtrie.trie_search(
+        jarr, keys, K, use_pallas=True, interpret=True, ftab=ftab,
+        prepared=prep,
+    )
+    jax.clear_caches()
+    arr = convert.stream_arrays(jarr, CPU)
+    n0 = fm_stream.rank4_stream.launches
+    lo, hi = fm_trie.trie_search(arr, keys, K, ftab=ftab, fused=False,
+                                 pair=False)
+    assert fm_stream.rank4_stream.launches == n0       # CPU: plain version
+    np.testing.assert_array_equal(hi - lo, want_hi - want_lo)
+    found = want_hi > want_lo
+    assert found.sum() > 100
+    np.testing.assert_array_equal(lo[found], want_lo[found])
 
 
 @pytest.mark.parametrize("gocc", [0, 5])

@@ -1,0 +1,181 @@
+"""psi_tpu_torch's copies of psi_tpu's host modules against the originals:
+on the same seeded inputs each copy gives the same arrays as the module
+it was copied from, with each package's native host library loaded (the
+port builds its own from psi_tpu_torch/csrc/host)."""
+
+import numpy as np
+import pytest
+
+from psi_tpu import native as jnative
+from psi_tpu.fmindex import FMIndex as JFMIndex
+from psi_tpu.io import load_graph as jload_graph
+from psi_tpu.records import Records as JRecords
+from psi_tpu.seed_finder import SeedFinder as JSeedFinder
+from psi_tpu.simulate import make_pangenome_graph as jmake_graph
+from psi_tpu_torch import native
+from psi_tpu_torch.fmindex import FMIndex
+from psi_tpu_torch.io import load_graph
+from psi_tpu_torch.pathutil import Path, sequence
+from psi_tpu_torch.graphiter import HaplotyperRandomIter
+from psi_tpu_torch.records import Records
+from psi_tpu_torch.seed_finder import SeedFinder
+from psi_tpu_torch.simulate import make_pangenome_graph
+
+K = 16
+
+
+def _eq(a, b):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """One seeded bubble graph as GFA, reads of a haplotype, and both
+    packages' finders over it with one picked path."""
+    assert native.available(), native.load_error
+    assert jnative.available()
+    tmp = tmp_path_factory.mktemp("host")
+    graph = make_pangenome_graph(20_000, 0.03, seed=6)
+    gfa = tmp / "g.gfa"
+    coords, loff = graph.coord_ids, graph.label_offsets
+    labels = graph.labels.tobytes().decode()
+    with open(gfa, "w") as fh:
+        fh.write("H\tVN:Z:1.0\n")
+        for r in range(graph.node_count):
+            fh.write(f"S\t{coords[r]}\t{labels[loff[r]:loff[r + 1]]}\n")
+        for r in range(graph.node_count):
+            for v in graph.out_indices[graph.out_indptr[r]:
+                                       graph.out_indptr[r + 1]]:
+                fh.write(f"L\t{coords[r]}\t+\t{coords[v - 1]}\t+\t0M\n")
+        for name, nodes in graph.paths:
+            segs = ",".join(f"{coords[v - 1]}+" for v in nodes)
+            fh.write(f"P\t{name}\t{segs}\t*\n")
+    itr = HaplotyperRandomIter(graph, seed=3)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = sequence(hap)
+    rng = np.random.RandomState(8)
+    starts = rng.randint(0, len(hs) - 80, 400)
+    names = [f"r{i}" for i in range(len(starts))]
+    seqs = [hs[p:p + 80] for p in starts]
+    finders = []
+    for cls, loader, kw in ((SeedFinder, load_graph, {"device": "cpu"}),
+                            (JSeedFinder, jload_graph, {})):
+        finder = cls(loader(str(gfa), cache=False), K, **kw)
+        finder.create_path_index(1, patched=False)
+        finders.append(finder)
+    return str(gfa), names, seqs, finders
+
+
+def _gfa(world):
+    gfa = world[0]
+    got, want = load_graph(gfa, cache=False), jload_graph(gfa, cache=False)
+    assert got.node_count == want.node_count
+    for name in ("labels", "label_offsets", "out_indptr", "out_indices",
+                 "coord_ids"):
+        _eq(getattr(got, name), getattr(want, name))
+    assert [(n, list(p)) for n, p in got.paths] == \
+        [(n, list(p)) for n, p in want.paths]
+
+
+def _fmindex(world):
+    rng = np.random.RandomState(2)
+    strings = ["".join(rng.choice(list("ACGTN"), size=n))
+               for n in (9_000, 4_000, 700)]
+    got = FMIndex.build_from_strings(strings)
+    want = JFMIndex.build_from_strings(strings)
+    for name in ("bwt", "sa", "C", "occ", "str_starts", "lengths"):
+        _eq(getattr(got, name), getattr(want, name))
+
+
+def _seeds(world):
+    _, names, seqs, (finder, jfinder) = world
+    for distance in (0, 5):
+        seeds = finder.get_seeds(Records(names, seqs), distance)
+        jseeds = jfinder.get_seeds(JRecords(names, seqs), distance)
+        for name in ("keys", "valid", "seedmap"):
+            _eq(getattr(seeds, name), getattr(jseeds, name))
+        index, jindex = finder.index_reads(seeds), jfinder.index_reads(jseeds)
+        for name in ("sorted_keys", "seed_ids", "chars", "occ", "planes"):
+            _eq(getattr(index, name), getattr(jindex, name))
+
+
+def _uncovered_loci(world):
+    finder, jfinder = world[3]
+    got = [(p.node_id(), p.offset()) for p in finder.get_starting_loci()]
+    want = [(p.node_id(), p.offset()) for p in jfinder.get_starting_loci()]
+    assert got == want and len(got) > 0
+
+
+def _picked_paths(world):
+    finder, jfinder = world[3]
+    got = [(list(p.get_nodes()), p.left, p.right)
+           for p in finder.pindex.get_paths_set()]
+    want = [(list(p.get_nodes()), p.left, p.right)
+            for p in jfinder.pindex.get_paths_set()]
+    assert got == want and len(got) == 1
+    _eq(finder.pindex.fm.bwt, jfinder.pindex.fm.bwt)
+
+
+def _trie_schedule(world):
+    rng = np.random.RandomState(4)
+    keys = np.unique(rng.randint(0, 4 ** K, size=3000).astype(np.uint64))
+    for level in (0, 6):
+        got = native.trie_schedule(keys, K, level)
+        want = jnative.trie_schedule(keys, K, level)
+        for a, b in zip(got[0] + got[1], want[0] + want[1], strict=True):
+            _eq(a, b)
+        _eq(got[2], want[2])
+        assert (got[3] is None) == (want[3] is None)
+        if got[3] is not None:
+            _eq(got[3], want[3])
+
+
+def _emit_join(world):
+    """The fused join over a synthetic chain: U distinct keys, each with
+    0..3 path occurrences and 1..3 seeds."""
+    rng = np.random.RandomState(5)
+    U, S = 300, 600
+    counts = rng.randint(0, 4, U).astype(np.int64)
+    emit_idx = np.nonzero(counts)[0]
+    inv = np.arange(U, dtype=np.int64)
+    occ_start_u = np.cumsum(counts) - counts
+    gpos = rng.randint(0, 50_000, int(counts.sum())).astype(np.int64)
+    pm_starts = np.arange(0, 50_000, 37, dtype=np.int64)
+    pm_ids = np.arange(1, len(pm_starts) + 1, dtype=np.int64)
+    pm_base = rng.randint(0, 3, len(pm_starts)).astype(np.int64)
+    sizes = rng.randint(1, 4, U)
+    uniq_end = np.cumsum(sizes).astype(np.int64)
+    uniq_start = uniq_end - sizes
+    seed_ids = rng.permutation(int(uniq_end[-1])).astype(np.int64)
+    seedmap = rng.randint(0, 1000, (S + int(uniq_end[-1]), 2)).astype(np.int64)
+    rows = counts[emit_idx] * sizes[emit_idx]
+    out_off = np.zeros(len(emit_idx) + 1, dtype=np.int64)
+    np.cumsum(rows, out=out_off[1:])
+    outs = []
+    for lib in (native, jnative):
+        out = np.full((int(out_off[-1]), 6), -7, dtype=np.int64)
+        assert lib.emit_join(counts, emit_idx, inv, inv, occ_start_u, gpos,
+                             pm_starts, pm_ids, pm_base, uniq_start,
+                             uniq_end, seed_ids, seedmap, 11, K, out_off,
+                             out)
+        outs.append(out)
+    _eq(outs[0], outs[1])
+    assert (outs[0] != -7).all()
+
+
+@pytest.mark.parametrize("module", [
+    "gfa", "fmindex", "seeds", "uncovered_loci", "picked_paths",
+    "trie_schedule", "emit_join",
+])
+def test_copy_matches_original(world, module):
+    globals()[f"_{module}"](world)
+
+
+def test_simulated_graph_matches_original():
+    got, want = make_pangenome_graph(8000, 0.05, seed=2), jmake_graph(
+        8000, 0.05, seed=2)
+    for name in ("labels", "label_offsets", "out_indptr", "out_indices"):
+        _eq(getattr(got, name), getattr(want, name))

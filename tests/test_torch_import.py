@@ -1,5 +1,6 @@
-"""psi_tpu_torch: jax-free import and run, the device rule, the kernel
-build, and wrapper dispatch by device."""
+"""psi_tpu_torch: it imports and runs with neither jax nor psi_tpu, the
+device rule and the card default, the kernel and host-library builds,
+and wrapper dispatch by device."""
 
 import ast
 import pathlib
@@ -7,19 +8,24 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
-from psi_tpu_torch import _build
+from psi_tpu_torch import _build, native
 from psi_tpu_torch.device import resolve
-from psi_tpu_torch.ops import fm_fused, fm_stream
+from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
+from psi_tpu_torch.seed_finder import SeedFinder
+from psi_tpu_torch.simulate import make_pangenome_graph
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "psi_tpu_torch"
 
 
 def test_package_never_imports_jax():
-    for path in sorted(PKG.rglob("*.py")):
+    """No module of the port, nor chip_smoke.py, imports jax or psi_tpu
+    (the reference): the port keeps its own copies."""
+    for path in [*sorted(PKG.rglob("*.py")), REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -28,18 +34,21 @@ def test_package_never_imports_jax():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] != "jax", f"{path}: {name}"
+                assert name.split(".")[0] not in ("jax", "psi_tpu"), \
+                    f"{path}: {name}"
 
 
 _JAX_BLOCKED_RUN = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None        # any `import jax` now raises
+    sys.modules["psi_tpu"] = None    # and any import of the reference
     import numpy as np
     import psi_tpu_torch
-    from psi_tpu.graphiter import HaplotyperRandomIter
-    from psi_tpu.pathutil import Path, sequence
-    from psi_tpu.records import Records
-    from psi_tpu.simulate import make_pangenome_graph
+    import psi_tpu_torch.cli
+    from psi_tpu_torch.graphiter import HaplotyperRandomIter
+    from psi_tpu_torch.pathutil import Path, sequence
+    from psi_tpu_torch.records import Records
+    from psi_tpu_torch.simulate import make_pangenome_graph
     from psi_tpu_torch.seed_finder import SeedFinder
 
     g = make_pangenome_graph(4000, 0.03, seed=4)
@@ -53,7 +62,7 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     starts = rng.randint(0, len(hs) - 60, 120)
     reads = Records([f"r{i}" for i in range(120)],
                     [hs[p:p + 60] for p in starts])
-    finder = SeedFinder(g, 12)
+    finder = SeedFinder(g, 12, device="cpu")
     finder.create_path_index(1, patched=False)
     seeds = finder.get_seeds(reads)
     index = finder.index_reads(seeds)
@@ -61,7 +70,7 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     on, off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(on) > 0 and len(off) > 0, (len(on), len(off))
     loaded = [m for m, v in sys.modules.items()
-              if v is not None and m.split(".")[0] == "jax"]
+              if v is not None and m.split(".")[0] in ("jax", "psi_tpu")]
     assert not loaded, loaded
     print("ok", len(on), len(off))
 """)
@@ -83,6 +92,20 @@ def test_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve("cuda")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """SeedFinder and prepare run on the card unless told otherwise, so
+    without one they raise instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    graph = make_pangenome_graph(2000, 0.02, seed=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SeedFinder(graph, 12)
+    keys = np.arange(0, 4 ** 8, 97, dtype=np.uint64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fm_trie.prepare(keys, 8)
+    assert SeedFinder(graph, 12, device="cpu").device.type == "cpu"
+    assert fm_trie.prepare(keys, 8, device="cpu").parents.device.type == "cpu"
 
 
 def _isolated_build(monkeypatch, tmp_path, nvcc_script=None):
@@ -123,10 +146,31 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     assert lib == tmp_path / "build" / "libkernels.so" and lib.exists()
     assert _build.build() == lib               # same sources: no rebuild
     lines = calls.read_text().splitlines()
-    assert len(lines) == 1
-    assert "arch=compute_90a,code=sm_90a" in lines[0]
-    for src in ("trie_level.cu", "rank4_pair.cu", "compact.cu"):
-        assert src in lines[0]
+    sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
+               "rank.cu", "status.cu")
+    # one compile per source, all for sm_90a, then one link
+    assert len(lines) == len(sources) + 1
+    for line in lines:
+        assert "arch=compute_90a,code=sm_90a" in line
+    compiled = sorted(line.split()[-1].rsplit("/", 1)[-1]
+                      for line in lines[:-1])
+    assert compiled == sorted(sources)
+    assert "-shared" in lines[-1] and "-c" not in lines[-1].split()
+
+
+def test_host_library_builds_and_loads(monkeypatch, tmp_path):
+    """The native host library is compiled from csrc/host by the first
+    C++ compiler on PATH, once per source hash, and binds."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib, cmd = _build.build_host()
+    assert lib == tmp_path / "build" / "libpsi_host.so" and lib.exists()
+    assert "-O3" in cmd and "-std=c++17" in cmd
+    mtime = lib.stat().st_mtime_ns
+    assert _build.build_host()[0].stat().st_mtime_ns == mtime
+    assert native.available(), native.load_error
+    monkeypatch.setattr(_build, "CXX_NAMES", ("no-such-c++",))
+    with pytest.raises(RuntimeError, match="no C\\+\\+ compiler"):
+        _build.build_host()
 
 
 def test_wrappers_raise_on_devices_without_a_kernel():
@@ -140,3 +184,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         fm_stream.compact_children(t.reshape(4, -1), t.reshape(4, -1), t,
                                    t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm_stream.rank4_stream(arrays, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm_stream.rank_stream(arrays, t, t)

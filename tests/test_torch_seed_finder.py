@@ -93,7 +93,7 @@ def test_not_ported_yet_raises(dataset, monkeypatch):
     for kw in ({"seed_mismatches": 1}, {"max_mem": 4}, {"devices": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SeedFinder(graph, 12, **kw)
-    finder = SeedFinder(graph, 12)
+    finder = SeedFinder(graph, 12, device="cpu")
     finder.create_path_index(1, patched=False)
     finder.add_uncovered_loci()
     monkeypatch.setattr(trav, "NODE_CAP", 10)
@@ -101,6 +101,28 @@ def test_not_ported_yet_raises(dataset, monkeypatch):
         finder._get_trav_tree()
     with pytest.raises(NotImplementedError, match="item 8"):
         finder.find_mems_arrays(None)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        SeedFinder(graph, 12, device="cpu").create_path_index(
+            1, patched=False, dmin=200, dmax=400)
+
+
+def test_path_index_round_trip(tmp_path):
+    """A path index (-I) saves and loads at insert size 0: the same
+    paths, FM index and starting loci come back."""
+    graph = make_pangenome_graph(3000, 0.02, seed=1)
+    finder = SeedFinder(graph, 12, device="cpu")
+    finder.create_path_index(2, patched=False)
+    prefix = str(tmp_path / "pindex")
+    assert finder.serialize_path_index(prefix)
+    loaded = SeedFinder(graph, 12, device="cpu")
+    assert loaded.load_path_index(prefix)
+    assert ([p.get_nodes() for p in loaded.pindex.get_paths_set()]
+            == [p.get_nodes() for p in finder.pindex.get_paths_set()])
+    np.testing.assert_array_equal(loaded.pindex.fm.sa, finder.pindex.fm.sa)
+    assert ([(p.node_id(), p.offset()) for p in loaded.get_starting_loci()]
+            == [(p.node_id(), p.offset()) for p in finder.get_starting_loci()])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        loaded.load_path_index(prefix, dmin=200)
 
 
 def test_cli_device_cuda_without_gpu_raises(dataset, monkeypatch):
