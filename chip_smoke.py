@@ -15,19 +15,22 @@ exits non-zero and prints no result):
     bacterial-scale pan-genome graph (simulate.make_pangenome_graph,
     5 Mbp reference, a SNP or insertion bubble every ~250 bp) as GFA 1,
     and reads of random haplotypes (100 bp, 1% substitutions) as FASTQ;
- 4. [kernels] each of the five kernels against its plain PyTorch version
-    on the card at the main path's shapes (the 10 Mbp index of 2 paths
-    and the first chunk's 2^19-slot frontier, every level), bit-equal
-    over all slots, with CUDA-event device times (a spin kernel queued
-    first), the enqueued time and the plain time, and each kernel's
-    bound from the bytes this run's inputs need; expand + locate time;
+ 4. [kernels] the four level kernels against their plain PyTorch
+    versions on the card at the main path's shapes (the 10 Mbp index of
+    2 paths and the first chunk's 2^19-slot frontier, every level),
+    bit-equal over all slots, with CUDA-event device times (a spin kernel
+    queued first), the enqueued time and the plain time, and each
+    kernel's bound from the bytes this run's inputs need; rank at the
+    trie step's positions too; expand + locate time;
  5. [routes] on chunk 1's distinct keys, each level route through
     `trie_search` (fused; two-pass with rank4_pair; two-pass with two
     rank4 launches) and `backward_search_sorted` from the ftab frontier,
     launch counters set to 0 just before each and read just after: the
     leaf ranges of the three routes are equal, the counts of the
     backward search equal the trie's, and each route launched its
-    kernels once per level (rank: twice per step);
+    kernels once per level (rank: twice per step); then the rank kernel
+    against its plain version on every step's inputs of the backward
+    search, with its times and bound there;
  6. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level;
@@ -241,22 +244,6 @@ def first_chunk_index(finder, fastq: str, chunk: int):
     return seeds, index
 
 
-def device_kernel_times(fn) -> dict:
-    """{kernel name: (device us, launches)} of one fn() run, by
-    torch.profiler's CUDA trace."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
-
-
 def profile_query(finder, seeds, index) -> dict:
     """Device busy share of one chunk's query (seeds_all_arrays on the
     prepared first chunk, WalkTree already built), by torch.profiler."""
@@ -306,30 +293,27 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 # Compulsory traffic of one launch at this run's inputs, as (bytes,
-# integer operations): each input array read once, each output written
-# once, and of the payload or rank tables only the 4-byte words this
-# run's positions land on (distinct blocks, (block, char) pairs or
-# (char, parent) pairs). Operations per element are counted from the
-# kernel sources.
+# integer operations): each input array read once and each output
+# written once. The 20 MB payload (payloadW or payloadT) is not counted:
+# every launch of a route, and every timed launch below, reads the same
+# payload, which stays in the 50 MB L2 from one launch to the next. The
+# rank tables that compact reads are counted, as the 4-byte words this
+# run's (char, parent) pairs land on: they are an output of the launch
+# before, and the timed loop cycles through every level's tables (9 x 16
+# MiB), so they come from HBM there. Operations per element are counted
+# from the kernel sources.
 
 def trie_level_work(parents, chars, lo, hi):
-    import torch
-
-    blocks = torch.cat((lo[parents.long()] >> 5, hi[parents.long()] >> 5))
-    words = 2 * n_unique(blocks * 8 + chars.repeat(2))  # occ + match row
-    return nbytes(parents, chars, lo, hi) + nbytes(lo, hi) + 4 * words, \
+    return nbytes(parents, chars, lo, hi) + nbytes(lo, hi), \
         20 * parents.numel()
 
 
 def rank4_pair_work(lo, hi):
-    import torch
-
-    words = 7 * n_unique(torch.cat((lo >> 5, hi >> 5)))
-    return nbytes(lo, hi) * 5 + 4 * words, 60 * lo.numel()
+    return nbytes(lo, hi) * 5, 60 * lo.numel()
 
 
 def rank4_work(pos):
-    return nbytes(pos) * 5 + 4 * 7 * n_unique(pos >> 5), 30 * pos.numel()
+    return nbytes(pos) * 5, 30 * pos.numel()
 
 
 def compact_work(r4lo, parents, chars):
@@ -338,9 +322,26 @@ def compact_work(r4lo, parents, chars):
 
 
 def rank_work(chars, pos):
-    blk = pos >> 5
-    words = n_unique(blk * 8 + chars) + 3 * n_unique(blk)
-    return nbytes(chars, pos) + nbytes(pos) + 4 * words, 12 * pos.numel()
+    return nbytes(chars, pos) + nbytes(pos), 12 * pos.numel()
+
+
+def measure(name, kernel, plain, per_run, work, err, shape,
+            plain_reps=PLAIN_REPS) -> dict:
+    """Device, enqueued and plain ms per launch of one kernel, beside its
+    bound from `work` ((bytes, ops) per launch); prints one line."""
+    ms = cuda_ms(kernel, KERNEL_REPS) / per_run
+    enq = enqueue_ms(kernel, KERNEL_REPS) / per_run
+    plain_ms = cuda_ms(plain, plain_reps) / per_run
+    bytes_moved = sum(b for b, _ in work) / len(work)
+    ops = sum(o for _, o in work) / len(work)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    phase("kernels", f"{name}: {1e3 * ms:.3f} us/launch on the device "
+          f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}); "
+          f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
+          f"({bytes_moved / 1e6:.2f} MB/launch); bit-equal over {shape}")
+    return {"max_abs_err": err, "ms": ms, "enqueued_ms": enq,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved, "ops": ops, "shape": shape}
 
 
 #: the five kernels: wrapper (module, attribute), source, the TPU rows of
@@ -485,7 +486,9 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
                 *r4s[j], par[j], chs[j], sarr.C)),
             levels,
             [compact_work(r4s[j][0], par[j], chs[j]) for j in range(levels)]),
-        "rank": (
+        # the trie step's pattern-sorted positions; the rank kernel's own
+        # path, the backward search, is measured in route_phase
+        "rank (trie positions)": (
             each_level(lambda j: fm_stream.rank_stream(
                 sarr, chs[j], ranked[j])),
             each_level(lambda j: fm_stream.rank_plain(
@@ -493,23 +496,9 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
             levels,
             [rank_work(chs[j], ranked[j]) for j in range(levels)]),
     }
-    records = {}
-    for name, (kernel, plain, per_run, work) in runs.items():
-        ms = cuda_ms(kernel, KERNEL_REPS) / per_run
-        enq = enqueue_ms(kernel, KERNEL_REPS) / per_run
-        plain_ms = cuda_ms(plain, PLAIN_REPS) / per_run
-        bytes_moved = sum(b for b, _ in work) / len(work)
-        ops = sum(o for _, o in work) / len(work)
-        bound_ms, bound_by = bound(bytes_moved, ops)
-        records[name] = {"max_abs_err": err[name], "ms": ms,
-                         "enqueued_ms": enq, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "bytes": bytes_moved, "ops": ops}
-        phase("kernels", f"{name}: {1e3 * ms:.3f} us/launch on the device "
-              f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}); "
-              f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
-              f"({bytes_moved / 1e6:.2f} MB/launch); bit-equal over {npad} "
-              f"slots x {levels} levels")
+    shape = f"{npad} slots x {levels} levels"
+    records = {name: measure(name, *run, err[name.split(" ")[0]], shape)
+               for name, run in runs.items()}
 
     # expand + locate of the chunk's leaf ranges (torch operators)
     lo, hi = fronts[-1]
@@ -532,7 +521,7 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     through its entry point with the launch counters set to 0 just before
     and read just after. Returns the launch counts per kernel (from the
     route that runs it), (device, enqueued) ms per chunk per route, and
-    the rank kernel's device µs per launch inside the backward search."""
+    the rank kernel's record on the backward search's own inputs."""
     import numpy as np
     import torch
 
@@ -592,16 +581,33 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     run = lambda: fm_stream.backward_search_sorted(sarr, *args)  # noqa: E731
     ms["backward_search_sorted"] = (cuda_ms(run, ROUTE_REPS),
                                     enqueue_ms(run, ROUTE_REPS))
-    # after its first step the backward search ranks scattered positions:
-    # the rank kernel's own time there, from the profiler's device trace
-    top = device_kernel_times(run)
-    rank_us = [(t, n) for key, (t, n) in top.items() if "rank_kernel" in key]
-    require(len(rank_us) == 1, f"no rank kernel in the trace: {list(top)}")
-    rank_scattered_us = rank_us[0][0] / rank_us[0][1]
-    phase("routes", "backward_search_sorted device time by kernel (us, "
-          "launches): " + "; ".join(
-              f"{key[:48]} {t:.1f} x{n}" for key, (t, n) in
-              sorted(top.items(), key=lambda kv: -kv[1][0])[:5]))
+
+    # the rank kernel on its own path: every step's (chars, lo) and
+    # (chars, hi) of the backward search, replayed with the plain version;
+    # after the first step these positions are scattered (random gathers)
+    cols = args[0].t().contiguous()
+    lo, hi = args[1], args[2]
+    steps = []
+    for j in range(cols.shape[0]):
+        steps += [(cols[j], lo), (cols[j], hi)]
+        base = sarr.C[cols[j].long()]
+        lo = base + fm_stream.rank_plain(sarr.payloadT, cols[j], lo)
+        hi = base + fm_stream.rank_plain(sarr.payloadT, cols[j], hi)
+    require(max_abs_err(lo, blo) == 0 and max_abs_err(hi, bhi) == 0,
+            "backward_search_sorted differs from its plain replay")
+    rank_err = max(max_abs_err(fm_stream.rank_stream(sarr, c, pos),
+                               fm_stream.rank_plain(sarr.payloadT, c, pos))
+                   for c, pos in steps)
+    require(rank_err == 0, f"rank differs from its plain version by "
+            f"{rank_err} on the backward search's positions")
+    rank_rec = measure(
+        "rank",
+        lambda: [fm_stream.rank_stream(sarr, c, pos) for c, pos in steps],
+        lambda: [fm_stream.rank_plain(sarr.payloadT, c, pos)
+                 for c, pos in steps],
+        len(steps), [rank_work(c, pos) for c, pos in steps], rank_err,
+        f"{len(uniq)} keys x {len(steps)} launches (lo and hi per step) of "
+        f"backward_search_sorted", plain_reps=1)
     blo, bhi = blo.cpu().numpy(), bhi.cpu().numpy()
     tlo, thi = leaves["fused"]
     require(np.array_equal(bhi - blo, thi - tlo),
@@ -616,9 +622,7 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     for name, (dev_ms, enq) in ms.items():
         phase("routes", f"{name}: {dev_ms:.4f} ms/chunk on the device, "
               f"{enq:.4f} enqueued")
-    phase("routes", f"rank on the backward search's scattered positions: "
-          f"{rank_scattered_us:.3f} us/launch")
-    return launches, ms, rank_scattered_us
+    return launches, ms, rank_rec
 
 
 # --- phases 5 and 6: the CLI ---------------------------------------------------
@@ -746,8 +750,7 @@ def main(argv=None) -> int:
               f"{time.monotonic() - t0:.1f} s")
         seeds, index = first_chunk_index(finder, fastq, args.chunk)
         records, extra = kernel_phase(finder, index)
-        launches, route_ms, extra["rank_scattered_us_per_launch"] = (
-            route_phase(finder, index))
+        launches, route_ms, records["rank"] = route_phase(finder, index)
         extra["route_ms_per_chunk"] = {
             r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
         extra.update(profile_query(finder, seeds, index))
@@ -802,8 +805,12 @@ def main(argv=None) -> int:
             "library_ms": None,
             "library": "none: no single PyTorch call computes a gather "
                        "plus a popcount plus an add",
-            "shape": f"{extra['npad']} slots x {extra['levels']} levels",
+            "shape": rec["shape"],
         })
+        if kname == "rank":
+            kernels[-1]["trie_positions"] = {
+                k: records["rank (trie positions)"][k] for k in
+                ("ms", "enqueued_ms", "plain_ms", "bound_ms", "shape")}
     summary = {
         "kernels": kernels,
         "card": card,
