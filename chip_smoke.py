@@ -31,12 +31,28 @@ exits non-zero and prints no result):
     kernels once per level (rank: twice per step); then the rank kernel
     against its plain version on every step's inputs of the backward
     search, with its times and bound there;
- 6. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
+ 6. [gather] the FM gather route on chunk 1's distinct keys: the
+    occ-row gather kernel against its plain version on every step's
+    positions of `backward_search_codes` over the dense [n+1, 4] table
+    and over psi_tpu's padded [n+1, 8] table, scattered as the route
+    gives them and sorted, with device, enqueued, plain and
+    `torch.index_select` times and the bound; the ranges of
+    `backward_search_codes` on the dense (kernel), bit-plane and
+    checkpointed layouts equal each other and the trie's, with launch
+    counts and ms per chunk; `backward_search_pallas` on the padded
+    table and `gather_occ_rows_blocked` agree; then the MEM API:
+    `find_mems_arrays` over chunk 1's reads on cuda equals it on the cpu
+    (and the scalar `seeds_on_paths_seq` on the first 1,000 reads), with
+    its launches (one per cursor step) and time;
+ 7. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
-    kernel must have run for every chunk and level;
- 7. the same command with --device cpu (the plain versions): the
+    kernel must have run for every chunk and level, and nothing else;
+ 8. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
+    only the occ-row gather, once per chunk and LF step, and a lexsorted
+    hit stream byte-identical to phase 7's;
+ 9. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
- 8. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
+10. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
 
 Then, on lines of their own, the kernels JSON and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -220,6 +236,24 @@ def enqueue_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def busy_ms(fn, per_run: int) -> float:
+    """Device busy milliseconds per launch of fn() by torch.profiler: the
+    sum of its kernels' times, without the gaps between them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / per_run
+
+
 def max_abs_err(got, want) -> int:
     require(got.shape == want.shape,
             f"shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -231,7 +265,8 @@ def first_chunk_index(finder, fastq: str, chunk: int):
     from psi_tpu_torch.records import Records
 
     names, packed = FastxStream(fastq).read_chunk_packed(chunk)
-    seeds = finder.get_seeds(Records(names, rec_offset=0, packed=packed))
+    reads = Records(names, rec_offset=0, packed=packed)
+    seeds = finder.get_seeds(reads)
     index = finder.index_reads(seeds)
     t0 = time.monotonic()
     finder._get_ftab()
@@ -241,7 +276,7 @@ def first_chunk_index(finder, fastq: str, chunk: int):
     finder.prepare_onpath(index)
     phase("prepare", f"trie plan (schedule + padding + upload) of chunk 1: "
           f"{time.monotonic() - t0:.4f} s")
-    return seeds, index
+    return reads, seeds, index
 
 
 def profile_query(finder, seeds, index) -> dict:
@@ -325,26 +360,41 @@ def rank_work(chars, pos):
     return nbytes(chars, pos) + nbytes(pos), 12 * pos.numel()
 
 
+def occ_gather_work(occ, pos):
+    """Positions read, the distinct rows they name read once, every
+    output row written; a few integer operations per position."""
+    row = occ.shape[1] * occ.element_size()
+    return nbytes(pos) + row * (n_unique(pos) + pos.numel()), \
+        4 * pos.numel()
+
+
 def measure(name, kernel, plain, per_run, work, err, shape,
-            plain_reps=PLAIN_REPS) -> dict:
+            plain_reps=PLAIN_REPS, library=None, tag="kernels") -> dict:
     """Device, enqueued and plain ms per launch of one kernel, beside its
-    bound from `work` ((bytes, ops) per launch); prints one line."""
+    bound from `work` ((bytes, ops) per launch) and, where one PyTorch
+    call computes the same function, that call's device ms; prints one
+    line."""
     ms = cuda_ms(kernel, KERNEL_REPS) / per_run
     enq = enqueue_ms(kernel, KERNEL_REPS) / per_run
     plain_ms = cuda_ms(plain, plain_reps) / per_run
+    library_ms = (None if library is None
+                  else cuda_ms(library, KERNEL_REPS) / per_run)
     bytes_moved = sum(b for b, _ in work) / len(work)
     ops = sum(o for _, o in work) / len(work)
     bound_ms, bound_by = bound(bytes_moved, ops)
-    phase("kernels", f"{name}: {1e3 * ms:.3f} us/launch on the device "
-          f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}); "
+    lib = ("" if library_ms is None
+           else f", library {1e3 * library_ms:.3f}")
+    phase(tag, f"{name}: {1e3 * ms:.3f} us/launch on the device "
+          f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}{lib}); "
           f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
           f"({bytes_moved / 1e6:.2f} MB/launch); bit-equal over {shape}")
     return {"max_abs_err": err, "ms": ms, "enqueued_ms": enq,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": bytes_moved, "ops": ops, "shape": shape}
 
 
-#: the five kernels: wrapper (module, attribute), source, the TPU rows of
+#: the six kernels: wrapper (module, attribute), source, the TPU rows of
 #: the kernel table it replaces and their file:line
 KERNELS = {
     "trie_level": (("fm_fused", "trie_level"),
@@ -364,6 +414,25 @@ KERNELS = {
                "psi_tpu/ops/fm_stream.py:878"]),
     "rank": (("fm_stream", "rank_stream"), "psi_tpu_torch/csrc/rank.cu", [9],
              ["psi_tpu/ops/fm_stream.py:166"]),
+    "occ_gather": (("fm_pallas", "gather_occ_rows"),
+                   "psi_tpu_torch/csrc/occ_gather.cu", [10, 11],
+                   ["psi_tpu/ops/fm_pallas.py:31",
+                    "psi_tpu/ops/fm_pallas.py:200"]),
+}
+#: the PyTorch call that computes each kernel's function, or why none does
+LIBRARY = {
+    "trie_level": "none: a payload gather by block, a match-word AND, a "
+                  "masked popcount and C[c] added; torch has no popcount "
+                  "operator and no call that fuses these",
+    "rank4_pair": "none: four ranks at lo and at hi, each a payload gather "
+                  "and a masked popcount; torch has no popcount operator",
+    "compact": "none: C[c] + r4[c - 1, parent] is an index computation, a "
+               "2-d gather and an add, no single call",
+    "rank4": "none: four ranks at one position array, each a payload "
+             "gather and a masked popcount; torch has no popcount operator",
+    "rank": "none: a per-query payload gather chosen by the query's char, "
+            "a masked popcount and an add; torch has no popcount operator",
+    "occ_gather": "torch.index_select(occ, 0, pos)",
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 
@@ -505,7 +574,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     counts = (hi - lo)[: len(uniq)]
     total = int(counts.clamp(min=0).sum().item())
     maps = finder._get_map_arrays()
-    sa = finder._get_fm_arrays().sa
+    sa = finder._get_sa()
     ms_expand = cuda_ms(lambda: fm_trie.expand_locate(
         sa, maps.str_starts, maps.lengths, maps.seq_off, lo, hi,
         len(uniq), 2**31 - 1, finder.seed_len, total), PLAIN_REPS)
@@ -625,15 +694,211 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     return launches, ms, rank_rec
 
 
-# --- phases 5 and 6: the CLI ---------------------------------------------------
+def _same_ranges(got, want) -> bool:
+    """R3: equal hi - lo everywhere, equal lo where the range is not
+    empty."""
+    import numpy as np
 
-def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int):
+    (lo, hi), (wlo, whi) = got, want
+    found = whi > wlo
+    return (np.array_equal(hi - lo, whi - wlo)
+            and np.array_equal(lo[found], wlo[found]))
+
+
+def seed_rows(arr):
+    """Lexsorted int64 rows of a SEED_DTYPE array."""
+    import numpy as np
+
+    cols = np.stack([arr[f].astype(np.int64) for f in arr.dtype.names],
+                    axis=1)
+    return cols[np.lexsort(cols.T[::-1])]
+
+
+def gather_phase(finder, reads, index) -> tuple[dict, dict]:
+    """The FM gather route on chunk 1: the occ-row gather kernel on its
+    path's positions at both table widths, the three rank layouts, the
+    padded-table and blocked entry points, and the MEM API. Returns the
+    kernel's record and the route facts."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import fm as fm_ops
+    from psi_tpu_torch.ops import fm_pallas, fm_trie
+    from psi_tpu_torch.seed_finder import SeedFinder
+
+    fm = finder.pindex.fm
+    k = finder.seed_len
+    dev = finder.device
+    uniq, _, prep = index._onpath_prep
+    t0 = time.monotonic()
+    arrays = finder._get_fm_arrays()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    require(arrays.occ_dense is not None and arrays.ftab is not None,
+            "the gather route did not take the dense layout with the ftab")
+    p = (arrays.ftab.shape[0].bit_length() - 1) // 2
+    steps = k - p
+    codes = torch.from_numpy(fm_ops.keys_to_codes(uniq, k)).to(dev)
+    phase("gather", f"dense occ [{fm.size + 1}, 4] built on the device in "
+          f"{build_s:.3f} s; {len(uniq)} keys, ftab p={p}, {steps} LF steps")
+
+    # the three rank layouts, each through backward_search_codes
+    both = fm_ops.to_device(fm, dev, bitplanes=True, sa=arrays.sa)._replace(
+        ftab=arrays.ftab)
+    layouts = {"dense": arrays, "bit-plane": both,
+               "checkpointed": both._replace(planes=None)}
+    ranges, layout_ms = {}, {}
+    for name, arr in layouts.items():
+        reset_counters()
+        lo, hi = fm_ops.backward_search_codes(arr, codes)
+        torch.cuda.synchronize()
+        got = read_counters()
+        want = {**ZERO_COUNTS, "occ_gather": steps if name == "dense" else 0}
+        require(got == want, f"backward_search_codes ({name}) launched {got}")
+        ranges[name] = (lo.cpu().numpy(), hi.cpu().numpy())
+        # one sync per call (the code check), so time it on the host clock
+        layout_ms[name] = enqueue_ms(
+            lambda arr=arr: fm_ops.backward_search_codes(arr, codes),
+            ROUTE_REPS)
+    trie = fm_trie.trie_search(finder._get_stream_arrays(), uniq, k,
+                               ftab=finder._get_ftab(), prepared=prep)
+    for name in layouts:
+        require(_same_ranges(ranges[name], trie),
+                f"backward_search_codes ({name}) differs from the trie")
+    found = int((trie[1] > trie[0]).sum())
+
+    # every step's positions of the dense route, replayed with the plain
+    # gather; after the first step they are scattered over the text
+    weights = 4 ** torch.arange(p - 1, -1, -1, device=dev)
+    start = arrays.ftab[((codes[:, :p].long() - 1) * weights).sum(dim=1)]
+    lo, hi = start[:, 0].contiguous(), start[:, 1].contiguous()
+    positions = []
+    for c in codes[:, p:].t():
+        positions.append(torch.cat([lo, hi]))
+        rows = fm_pallas.gather_occ_rows_plain(arrays.occ_dense,
+                                               positions[-1])
+        occ_c = rows.gather(1, (c.long() - 1).repeat(2)[:, None])[:, 0]
+        base = arrays.C[c.long()]
+        lo, hi = base + occ_c[: len(uniq)], base + occ_c[len(uniq):]
+    require(_same_ranges((lo.cpu().numpy(), hi.cpu().numpy()),
+                         ranges["dense"]),
+            "backward_search_codes differs from its plain replay")
+    occ8_np = fm_pallas.occ_dense_padded(fm)
+    tables = {4: arrays.occ_dense, 8: torch.from_numpy(occ8_np).to(dev)}
+    orders = {"scattered": positions,
+              "sorted": [torch.sort(q).values for q in positions]}
+    err, variants = 0, {}
+    for width, occ in tables.items():
+        for order, pos in orders.items():
+            e = max(max_abs_err(fm_pallas.gather_occ_rows(occ, q),
+                                fm_pallas.gather_occ_rows_plain(occ, q))
+                    for q in pos)
+            e_lib = max(max_abs_err(torch.index_select(occ, 0, q),
+                                    fm_pallas.gather_occ_rows_plain(occ, q))
+                        for q in pos)
+            require(e == 0 and e_lib == 0, f"occ_gather W={width} {order}: "
+                    f"kernel {e}, index_select {e_lib} off the plain version")
+            err = max(err, e)
+            rec = measure(
+                f"occ_gather W={width} {order}",
+                lambda occ=occ, pos=pos: [fm_pallas.gather_occ_rows(occ, q)
+                                          for q in pos],
+                lambda occ=occ, pos=pos: [
+                    fm_pallas.gather_occ_rows_plain(occ, q) for q in pos],
+                len(pos), [occ_gather_work(occ, q) for q in pos], e,
+                f"{len(pos)} launches of {positions[0].numel()} positions "
+                f"(lo and hi per LF step), table {tuple(occ.shape)}",
+                library=lambda occ=occ, pos=pos: [
+                    torch.index_select(occ, 0, q) for q in pos],
+                tag="gather")
+            # the same three by the profiler's kernel times, gaps left out
+            rec["busy_ms"] = {
+                name: busy_ms(lambda f=f, pos=pos, occ=occ: [
+                    f(occ, q) for q in pos], len(pos))
+                for name, f in (
+                    ("kernel", fm_pallas.gather_occ_rows),
+                    ("plain", fm_pallas.gather_occ_rows_plain),
+                    ("library", lambda o, q: torch.index_select(o, 0, q)))}
+            phase("gather", f"occ_gather W={width} {order}, device busy by "
+                  f"the profiler (us/launch): " + ", ".join(
+                      f"{k} {1e3 * v:.3f}" for k, v in rec["busy_ms"].items()))
+            variants[f"W{width} {order}"] = rec
+
+    # psi_tpu's padded-table search (from the root) and blocked gather
+    reset_counters()
+    plo, phi = fm_pallas.backward_search_pallas(tables[8], arrays.C, fm.size,
+                                                codes)
+    got = read_counters()
+    require(got == {**ZERO_COUNTS, "occ_gather": k},
+            f"backward_search_pallas launched {got}")
+    require(_same_ranges((plo.cpu().numpy(), phi.cpu().numpy()), trie),
+            "backward_search_pallas differs from the trie")
+    q = positions[1].cpu().numpy()
+    require(np.array_equal(fm_pallas.gather_occ_rows_blocked(occ8_np, q,
+                                                           device=dev),
+                           occ8_np[q]),
+            "gather_occ_rows_blocked differs from the table's rows")
+    del tables[8]
+    phase("gather", f"ranges of the dense, bit-plane and checkpointed "
+          f"layouts and of backward_search_pallas equal the trie's ({found} "
+          f"keys present); gather_occ_rows_blocked equal on "
+          f"{len(q)} positions")
+    for name, t in layout_ms.items():
+        phase("gather", f"backward_search_codes ({name}): {t:.4f} ms/chunk "
+              f"(host clock, ends in a synchronize)")
+
+    # the MEM API on the card and on the CPU (same index, paths, ftab)
+    cpu = SeedFinder(finder.graph, k, device="cpu")
+    cpu.pindex, cpu._path_map, cpu._ftab_np = (
+        finder.pindex, finder._path_map, finder._ftab_np)
+    reset_counters()
+    t0 = time.monotonic()
+    mems = finder.find_mems_arrays(reads)
+    mem_s = time.monotonic() - t0
+    mem_launches = read_counters()
+    L = int(np.diff(reads.packed_view()[1]).max())
+    require(mem_launches == {**ZERO_COUNTS, "occ_gather": L},
+            f"find_mems_arrays launched {mem_launches}, expected {L}")
+    t0 = time.monotonic()
+    mems_cpu = cpu.find_mems_arrays(reads)
+    cpu_s = time.monotonic() - t0
+    rows = seed_rows(mems)
+    require(len(rows) > 0 and rows.tobytes() == seed_rows(mems_cpu).tobytes(),
+            f"find_mems_arrays: cuda {len(mems)} rows, cpu {len(mems_cpu)}")
+    scalar = []
+    n_scalar = min(1000, len(reads))
+    for rid, seq in enumerate(reads.seqs[:n_scalar]):
+        finder.seeds_on_paths_seq(seq, lambda h, r=rid: scalar.append(
+            (h.node_id, h.node_offset, r, h.read_offset, h.match_len,
+             h.gocc)))
+    scalar = np.array(scalar, dtype=np.int64).reshape(-1, 6)
+    scalar = scalar[np.lexsort(scalar.T[::-1])]
+    require(np.array_equal(scalar, rows[rows[:, 2] < n_scalar]),
+            "find_mems_arrays differs from seeds_on_paths_seq")
+    phase("gather", f"find_mems_arrays over {len(reads)} reads: {len(mems)} "
+          f"MEM hits, {mem_s:.3f} s on cuda ({L} launches of occ_gather), "
+          f"{cpu_s:.3f} s on cpu, equal; first {n_scalar} reads equal "
+          f"seeds_on_paths_seq ({len(scalar)} hits)")
+    rec = dict(variants["W4 scattered"])
+    rec["variants"] = variants
+    rec["max_abs_err"] = err
+    facts = {"steps": steps, "dense_build_s": build_s,
+             "layout_ms_per_chunk": layout_ms, "keys_present": found,
+             "mems": {"reads": len(reads), "hits": len(mems),
+                      "launches": L, "cuda_s": mem_s, "cpu_s": cpu_s}}
+    return rec, facts
+
+
+# --- phases 7 to 9: the CLI ----------------------------------------------------
+
+def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
+            tag: str = ""):
     import numpy as np
 
     from psi_tpu_torch import cli
 
-    out = os.path.join(tmp, f"hits_{device}.bin")
-    report = os.path.join(tmp, f"report_{device}.json")
+    out = os.path.join(tmp, f"hits_{device}{tag}.bin")
+    report = os.path.join(tmp, f"report_{device}{tag}.json")
     t0 = time.monotonic()
     rc = cli.main([gfa, "-f", fastq, "-l", str(SEED_LEN), "-n",
                    str(N_PATHS), "-P", "-c", str(chunk), "--device", device,
@@ -648,6 +913,8 @@ def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int):
 
 
 def summarize(rep: dict, device: str, wall: float) -> dict:
+    """Per-chunk lines and the sustained rates of one CLI run; `device`
+    names the phase (cli-<device>)."""
     chunks = rep["chunks"]
     on = sum(c["hits_on"] for c in chunks)
     off = sum(c["hits_off"] for c in chunks)
@@ -748,11 +1015,13 @@ def main(argv=None) -> int:
         phase("index", f"{finder.pindex.fm.size} chars, "
               f"{len(finder.get_starting_loci())} loci in "
               f"{time.monotonic() - t0:.1f} s")
-        seeds, index = first_chunk_index(finder, fastq, args.chunk)
+        reads, seeds, index = first_chunk_index(finder, fastq, args.chunk)
         records, extra = kernel_phase(finder, index)
         launches, route_ms, records["rank"] = route_phase(finder, index)
         extra["route_ms_per_chunk"] = {
             r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
+        records["occ_gather"], extra["gather"] = gather_phase(finder, reads,
+                                                              index)
         extra.update(profile_query(finder, seeds, index))
 
         reset_counters()
@@ -769,6 +1038,35 @@ def main(argv=None) -> int:
                 "the CLI run found no on-path or no off-path hits")
         phase("cli-cuda", f"launches in the CLI run: {cli_launches}")
         launches["trie_level"] = cli_launches["trie_level"]
+
+        # the gather route end to end: PSI_STREAM=0, the variable psi_tpu
+        # reads, set around this run only
+        os.environ["PSI_STREAM"] = "0"
+        try:
+            reset_counters()
+            hits_g, rep_g, wall = run_cli(gfa, fastq, tmp, "cuda", args.chunk,
+                                          tag="_gather")
+            gather_launches = read_counters()
+        finally:
+            del os.environ["PSI_STREAM"]
+        gather_res = summarize(rep_g, "gather", wall)
+        steps = extra["gather"]["steps"]
+        want = {**ZERO_COUNTS, "occ_gather": len(rep_g["chunks"]) * steps}
+        require(gather_launches == want,
+                f"the gather-route CLI run launched {gather_launches}, "
+                f"expected {want} ({len(rep_g['chunks'])} chunks x {steps} "
+                f"steps)")
+        require(hits_g.tobytes() == hits_cuda.tobytes(),
+                f"gather-route hit stream differs from the trie route's: "
+                f"{len(hits_g)} vs {len(hits_cuda)} hits")
+        phase("cli-gather", f"launches {gather_launches}; lexsorted hit "
+              f"stream identical to the trie route's ({len(hits_g)} hits); "
+              f"sustained {gather_res.get('kmer_queries_per_s', 0):.1f} "
+              f"kmer-queries/s and {gather_res.get('hits_per_s', 0):.1f} "
+              f"hits/s (trie route "
+              f"{cuda_res.get('kmer_queries_per_s', 0):.1f} and "
+              f"{cuda_res.get('hits_per_s', 0):.1f})")
+        launches["occ_gather"] = gather_launches["occ_gather"]
 
         hits_cpu, rep_cpu, wall = run_cli(gfa, fastq, tmp, "cpu", args.chunk)
         summarize(rep_cpu, "cpu", wall)
@@ -788,7 +1086,9 @@ def main(argv=None) -> int:
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
              "rank4": "trie_search(fused=False, pair=False), chunk 1",
-             "rank": "backward_search_sorted, chunk 1"}
+             "rank": "backward_search_sorted, chunk 1",
+             "occ_gather": f"psikt CLI with PSI_STREAM=0 (the gather "
+                           f"route), {len(rep_g['chunks'])} chunks"}
     kernels = []
     for kname, (_, source, rows, replaces) in KERNELS.items():
         require(launches[kname] > 0, f"{kname} was never launched on its path")
@@ -802,26 +1102,33 @@ def main(argv=None) -> int:
             "enqueued_ms": rec["enqueued_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "bound_bytes": rec["bytes"], "bound_ops": rec["ops"],
-            "library_ms": None,
-            "library": "none: no single PyTorch call computes a gather "
-                       "plus a popcount plus an add",
+            "library_ms": rec.get("library_ms"),
+            "library": LIBRARY[kname],
             "shape": rec["shape"],
         })
         if kname == "rank":
             kernels[-1]["trie_positions"] = {
                 k: records["rank (trie positions)"][k] for k in
                 ("ms", "enqueued_ms", "plain_ms", "bound_ms", "shape")}
+        if kname == "occ_gather":
+            kernels[-1]["variants"] = {
+                v: {k: r[k] for k in ("ms", "enqueued_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bytes",
+                                      "busy_ms")}
+                for v, r in rec["variants"].items()}
     summary = {
         "kernels": kernels,
         "card": card,
         "route": extra,
         "sustained": {k: v for k, v in cuda_res.items() if k != "chunks"},
+        "sustained_gather": {k: v for k, v in gather_res.items()
+                             if k != "chunks"},
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
-        json.dump({**summary, "chunks_cuda": cuda_res["chunks"]}, fh,
-                  indent=2)
+        json.dump({**summary, "chunks_cuda": cuda_res["chunks"],
+                   "chunks_gather": gather_res["chunks"]}, fh, indent=2)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,9 @@ Same flags, chunk loop and output as psi_tpu.cli (raw little-endian int64
 quadruples (node_id, node_offset, read_id, read_offset) per hit), with
 this package's SeedFinder. `--device cuda` runs the CUDA kernels and
 raises without a GPU; `--device cpu` runs their plain PyTorch versions.
+The on-path route is the trie chain unless psi_tpu's variables pick
+another: PSI_STREAM=0 runs the gather route (backward search on the
+dense occ table), PSI_DEVICE_LOCATE=0 locates on the host.
 
     python -m psi_tpu_torch.cli GRAPH -f READS -l 20 -n 2 -P -c 100000 \\
         --device cuda -o hits.bin [--report report.json]
@@ -326,11 +329,10 @@ def main(argv: Optional[list] = None) -> int:
             cols[:, 3] = hits["read_offset"]
             cols.tofile(out)
             out.flush()
-            prep = getattr(index, "_onpath_prep", None)
             rec = {
                 "reads": len(chunk),
                 "seeds": int(index.size),
-                "keys": int(len(prep[0])) if prep is not None else 0,
+                "keys": _distinct(index.sorted_keys),
                 "hits_on": int(len(on_hits)),
                 "hits_off": int(len(off_hits)),
                 "produce_s": produce_s,
@@ -377,6 +379,13 @@ def main(argv: Optional[list] = None) -> int:
         with open(args.report, "w") as fh:
             json.dump(report, fh, indent=2)
     return 0
+
+
+def _distinct(sorted_keys: np.ndarray) -> int:
+    """Distinct values of a sorted key array: the chunk's k-mer queries."""
+    if not len(sorted_keys):
+        return 0
+    return int(np.count_nonzero(sorted_keys[1:] != sorted_keys[:-1])) + 1
 
 
 def _write_report(args, finder, graph, found, covered_reads, n_chunks):

@@ -53,6 +53,28 @@ def fm_sa(src, device: torch.device) -> torch.Tensor:
     return _t(_np(src.sa).astype(np.int32), device)
 
 
+def fm_arrays(src, device: torch.device) -> fm_ops.FMArrays:
+    """psi_tpu FMArrays -> FMArrays, every layout it holds and the ftab.
+    The bit planes' uint32 words are kept as int32 of the same bits."""
+
+    def opt(a, dtype=None):
+        if a is None:
+            return None
+        a = _np(a)
+        return _t(a if dtype is None else a.view(dtype), device)
+
+    return fm_ops.FMArrays(
+        bwt_blocks=_t(src.bwt_blocks, device),
+        occ=_t(src.occ, device),
+        C=_t(src.C, device),
+        sa=fm_sa(src, device),
+        n=int(src.n),
+        occ_dense=opt(src.occ_dense),
+        planes=opt(src.planes, np.int32),
+        ftab=opt(src.ftab),
+    )
+
+
 def map_arrays(src, device: torch.device) -> fm_ops.MapArrays:
     """psi_tpu MapArrays -> MapArrays."""
     return fm_ops.map_arrays_from_host(

@@ -4,11 +4,19 @@ The host lifecycle is psi_tpu's, copied: path picking and indexing,
 uncovered loci and their persistence, seeding and the reads-side index,
 the seed join and emission. The device routes are this package's:
 
-  * on-path: distinct seed k-mers -> host trie schedule (`prepare`) ->
-    ftab-seeded frontier -> level kernels -> counts download ->
-    expand + locate on the device at the exact total -> gpos download ->
-    the join (native psi_emit_join when the host library is loaded);
-  * off-path: the host WalkTree, built once per loci set.
+  * on-path, the chain (the default): distinct seed k-mers -> host trie
+    schedule (`prepare`) -> ftab-seeded frontier -> level kernels ->
+    counts download -> expand + locate on the device at the exact total
+    -> gpos download -> the join (native psi_emit_join when the host
+    library is loaded);
+  * on-path, psi_tpu's other routes, chosen by the variables psi_tpu
+    reads (`_stream_enabled`, `_device_locate_enabled`): the trie search
+    with a host locate, and the gather route (backward search over code
+    rows on the dense occ table, csrc/occ_gather.cu) with a device or a
+    host locate;
+  * off-path: the host WalkTree, built once per loci set;
+  * the MEM library API (`find_mems_arrays`, `seeds_on_paths_seqs`): the
+    lockstep MEM automaton on the device, locate on the host.
 
 One device only; the card unless `device` names the CPU. What this
 package does not port yet raises NotImplementedError naming the
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from psi_tpu_torch.device import resolve
+from psi_tpu_torch.fmindex import SIGMA
 from psi_tpu_torch.graph import Graph, Position
 from psi_tpu_torch.graphiter import BacktrackerIter, BFSIter, HaplotyperIter
 from psi_tpu_torch.graphiter import extend_to_k
@@ -68,11 +77,6 @@ class SeedFinder:
             raise NotImplementedError(
                 "--mismatches is not ported yet (ROADMAP.md Queue 1, item 7)"
             )
-        if max_mem > 0:
-            raise NotImplementedError(
-                "MEM queries (--max-mem) are not ported yet "
-                "(ROADMAP.md Queue 1, item 8)"
-            )
         #: the query device: the card unless the caller names the CPU
         self.device = resolve("cuda") if device is None else torch.device(device)
         self.graph = graph
@@ -86,7 +90,8 @@ class SeedFinder:
         self.d = (0, 0)
         self._rng_seed = rng_seed
         # device-side caches (built lazily)
-        self._fm_arrays = None
+        self._sa = None          # the dense SA, all the chain reads
+        self._fm_arrays = None   # rank layout (gather route, MEM API)
         self._path_map = None
         self._map_arrays = None
         self._stream_arrays = None
@@ -162,6 +167,7 @@ class SeedFinder:
 
     def _reset_index_caches(self):
         self._build_path_map()
+        self._sa = None
         self._fm_arrays = None
         self._map_arrays = None
         self._stream_arrays = None
@@ -472,6 +478,9 @@ class SeedFinder:
         with self.stats.timeit_ts("index-reads"):
             return SeedsIndex(seeds)
 
+    #: dense per-position occ table budget (bytes); texts whose dense
+    #: table fits use the gather-only rank
+    DENSE_OCC_BUDGET = int(os.environ.get("PSI_DENSE_OCC_BUDGET", 2 << 30))
     #: largest prefix-table depth (4**p SA-range rows; 11 -> 32 MB)
     FTAB_MAX_BITS = int(os.environ.get("PSI_FTAB_MAX_BITS", 11))
 
@@ -489,10 +498,55 @@ class SeedFinder:
         return max(min(self.FTAB_MAX_BITS, self.seed_len, log4), 0)
 
     # --- device state caches ---------------------------------------------
+    def _get_sa(self):
+        """The dense SA on the device: all the chain route reads."""
+        if self._sa is None and self.pindex.fm is not None:
+            self._sa = fm_ops.sa_to_device(self.pindex.fm, self.device)
+        return self._sa
+
     def _get_fm_arrays(self):
-        if self._fm_arrays is None and self.pindex.fm is not None:
-            self._fm_arrays = fm_ops.to_device(self.pindex.fm, self.device)
+        """The rank layout, built at the first gather-route or MEM call
+        (the chain never pays for it) around the cached SA.
+
+        psi_tpu picks the layout by platform: dense on its CPU backend,
+        bit-planes on the TPU, where XLA serializes gathers from a big
+        table. On the H100 a dense row gather is one 16-byte load from
+        HBM (csrc/occ_gather.cu), and a 10 Mbp table is 160 MB of 80 GB,
+        so both devices take the dense layout within DENSE_OCC_BUDGET and
+        the bit planes beyond it."""
+        fm = self.pindex.fm
+        if self._fm_arrays is None and fm is not None:
+            dense = fm.size * 16 <= self.DENSE_OCC_BUDGET
+            arrays = fm_ops.to_device(fm, self.device, dense_occ=dense,
+                                      bitplanes=not dense, sa=self._get_sa())
+            ftab = self._get_ftab()
+            if ftab is not None and fm.size and fm.sigma == SIGMA:
+                arrays = arrays._replace(
+                    ftab=torch.from_numpy(ftab).to(self.device))
+            self._fm_arrays = arrays
         return self._fm_arrays
+
+    def _stream_enabled(self) -> bool:
+        """Trie-batched on-path search (ops/fm_trie.py); PSI_STREAM=1/0
+        overrides. psi_tpu defaults it on for the TPU and off on its CPU
+        backend, where its dense gather route wins. Here it is on for
+        both devices: `--device cpu` must run the same route as `--device
+        cuda`, so that comparing the two compares each kernel with its
+        plain version, not one route with another."""
+        env = os.environ.get("PSI_STREAM")
+        if env is not None:
+            return env not in ("", "0")
+        return True
+
+    @staticmethod
+    def _device_locate_enabled() -> bool:
+        """Device-side locate + map; PSI_DEVICE_LOCATE=1/0 overrides.
+        psi_tpu defaults it off on its CPU backend; on here for both
+        devices, for the reason `_stream_enabled` gives."""
+        env = os.environ.get("PSI_DEVICE_LOCATE")
+        if env is not None:
+            return env not in ("0", "")
+        return True
 
     def _get_stream_arrays(self):
         if self._stream_arrays is None:
@@ -540,8 +594,9 @@ class SeedFinder:
 
     def prepare_onpath(self, index) -> None:
         """Build and upload the chunk's trie plan; runs on the CLI's
-        producer thread, overlapped with the previous chunk's queries."""
-        if index.size == 0:
+        producer thread, overlapped with the previous chunk's queries.
+        Nothing to plan when the trie route is off."""
+        if index.size == 0 or not self._stream_enabled():
             return
         if self.pindex.fm is None or self.pindex.fm.size == 0:
             return
@@ -552,13 +607,25 @@ class SeedFinder:
         )
         index._onpath_prep = (uniq, inv, prepared)
 
+    def _search_stream(self, search_keys: np.ndarray, k: int, prep=None):
+        """Trie-batched backward search of search_keys (any order,
+        duplicates allowed), returned in input order as host (lo, hi).
+        `prep` is a (uniq, inv, PreparedTrie) from `prepare_onpath`."""
+        if prep is not None:
+            uniq, inv, prepared = prep
+        else:
+            uniq, inv = np.unique(search_keys, return_inverse=True)
+            prepared = None
+        lo, hi = fm_trie.trie_search(
+            self._get_stream_arrays(), uniq, k, ftab=self._get_ftab(),
+            prepared=prepared,
+        )
+        return lo[inv], hi[inv]
+
     def _onpath_chain(self, index, search_keys: np.ndarray, thr: int):
         """Trie search -> counts download -> device expand + locate over
         the device-resident lo/hi -> one global position per hit.
-        Returns (counts[search order], emit mask, fn -> join), or None
-        when there is no path index."""
-        if self.pindex.fm is None or self.pindex.fm.size == 0:
-            return None
+        Returns (counts[search order], emit mask, fn -> join)."""
         k = self.seed_len
         prep = getattr(index, "_onpath_prep", None)
         if prep is not None:
@@ -591,7 +658,7 @@ class SeedFinder:
                 return np.nonzero(emit)[0], z, z, z
             maps = self._get_map_arrays()
             gpos_d, _ = fm_trie.expand_locate(
-                self._get_fm_arrays().sa,
+                self._get_sa(),
                 maps.str_starts, maps.lengths, maps.seq_off,
                 lo_d, hi_d, n_leaves, thr32, k, cap=total_u,
             )
@@ -602,6 +669,59 @@ class SeedFinder:
             )
 
         return counts, emit, occurrences
+
+    def _onpath_search_locate(self, index, search_keys: np.ndarray, thr):
+        """psi_tpu's non-chain on-path routes: the SA ranges of every
+        search key, from the trie search (PSI_STREAM on) or from the
+        gather route's backward search over code rows (off), then locate
+        and map every occurrence on the device (PSI_DEVICE_LOCATE on) or
+        on the host. Returns (counts, search row per occurrence, node ids,
+        node offsets), or None when nothing is emitted."""
+        tstats = self.stats.get_this_thread_stats()
+        k = self.seed_len
+        fm = self.pindex.fm
+        pm = self._path_map
+        if self._stream_enabled():
+            lo, hi = self._search_stream(
+                search_keys, k, prep=getattr(index, "_onpath_prep", None)
+            )
+        else:
+            arrays = self._get_fm_arrays()
+            codes = torch.from_numpy(fm_ops.keys_to_codes(search_keys, k))
+            lo, hi = fm_ops.backward_search_codes(arrays,
+                                                  codes.to(self.device))
+            lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+        counts = (hi - lo).astype(np.int64)
+        present = counts > 0
+        emit = present & (counts <= thr)
+        tstats.add_seed_gocc_bulk(int(counts[emit].sum()), int(emit.sum()))
+        tstats.inc_gocc_skips(int((present & ~emit).sum()))
+        if not emit.any():
+            return None
+        emit_idx = np.nonzero(emit)[0]
+        # locate by direct dense-SA range expansion (no padded matrix: a
+        # single repetitive k-mer must not blow up the batch)
+        widths = counts[emit]
+        total = int(widths.sum())
+        occ_rows = np.repeat(np.arange(len(widths)), widths)
+        within = np.arange(total) - np.repeat(
+            np.cumsum(widths) - widths, widths
+        )
+        sa_idx = lo[emit].astype(np.int64)[occ_rows] + within
+        if total and self._device_locate_enabled():
+            d_ids, d_offs = fm_ops.locate_map_device(
+                self._get_fm_arrays(), self._get_map_arrays(),
+                torch.from_numpy(sa_idx.astype(np.int32)).to(self.device), k,
+            )
+            node_ids = d_ids.cpu().numpy().astype(np.int64)
+            node_offs = d_offs.cpu().numpy().astype(np.int64)
+        else:
+            sid, q = fm.text_pos_to_string(fm.sa[sa_idx])
+            gpos = pm["seq_off"][sid] + pm["lengths"][sid] - q - k
+            entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
+            node_ids = pm["ids"][entry]
+            node_offs = gpos - pm["starts"][entry] + pm["base"][entry]
+        return counts, emit_idx[occ_rows], node_ids, node_offs
 
     def _chain_join(self, counts, emit, inv, occ_start_u, gpos_stream):
         """The deterministic seed join: the device's gpos stream is
@@ -702,31 +822,39 @@ class SeedFinder:
         k = self.seed_len
         if index.size == 0:
             return None
+        if self.pindex.fm is None or self.pindex.fm.size == 0:
+            return None
         uniq_keys, uniq_start, search_keys, origin = (
             self._onpath_search_keys(index)
         )
         uniq_end = np.append(uniq_start[1:], index.size)
         thr = (self.gocc_threshold if self.gocc_threshold
                else np.iinfo(np.int64).max)
-        chain = self._onpath_chain(index, search_keys, thr)
-        if chain is None:
-            return None
-        counts, emit, row_per_occ_fn = chain
-        skipped = (counts > 0) & ~emit
-        tstats.add_seed_gocc_bulk(int(counts[emit].sum()), int(emit.sum()))
-        tstats.inc_gocc_skips(int(skipped.sum()))
-        if not emit.any():
-            return None
-        join = row_per_occ_fn()
-        if isinstance(join[0], str) and join[0] == "raw":
-            # native fused join: cross-product + SEED_DTYPE fill in one pass
-            _, occ_start_u, gpos_stream, inv_c, emit_r = join
-            return self._emit_join_native(
-                counts, emit_r, inv_c, origin, occ_start_u,
-                gpos_stream, index, seeds, uniq_start, uniq_end, k,
-            )
-        emit_idx, occ_rows, node_ids, node_offs = join
-        row_per_occ = emit_idx[occ_rows]
+        if self._stream_enabled() and self._device_locate_enabled():
+            counts, emit, row_per_occ_fn = self._onpath_chain(
+                index, search_keys, thr)
+            skipped = (counts > 0) & ~emit
+            tstats.add_seed_gocc_bulk(int(counts[emit].sum()),
+                                      int(emit.sum()))
+            tstats.inc_gocc_skips(int(skipped.sum()))
+            if not emit.any():
+                return None
+            join = row_per_occ_fn()
+            if isinstance(join[0], str) and join[0] == "raw":
+                # native fused join: cross-product + SEED_DTYPE fill in
+                # one pass
+                _, occ_start_u, gpos_stream, inv_c, emit_r = join
+                return self._emit_join_native(
+                    counts, emit_r, inv_c, origin, occ_start_u,
+                    gpos_stream, index, seeds, uniq_start, uniq_end, k,
+                )
+            emit_idx, occ_rows, node_ids, node_offs = join
+            row_per_occ = emit_idx[occ_rows]
+        else:
+            found = self._onpath_search_locate(index, search_keys, thr)
+            if found is None:
+                return None
+            counts, row_per_occ, node_ids, node_offs = found
         ui_per_occ = origin[row_per_occ]
         # cross product: repeat each occurrence by its k-mer's seed count
         n_seeds_per_ui = (uniq_end - uniq_start)[ui_per_occ]
@@ -747,10 +875,198 @@ class SeedFinder:
         out["gocc"] = rep_gocc
         return out
 
-    def find_mems_arrays(self, reads):
-        raise NotImplementedError(
-            "MEM queries are not ported yet (ROADMAP.md Queue 1, item 8)"
-        )
+    # === MEM query path (library API, ref: seed_finder.hpp:1459-1479) ======
+    def seeds_on_paths_seq(
+        self, sequence: str, callback: Callable[[Seed], None]
+    ):
+        """find_mems over the path index on the host, one read
+        (ref: index_iter.hpp:854-906)."""
+        if self.pindex.fm is None or self.pindex.fm.size == 0:
+            return
+        self.stats.set_progress(ProgressEnum.READY)
+        self.stats.get_this_thread_stats().set_progress(ProgressEnum.FIND_MEMS)
+        with self.stats.timeit_ts("query-paths"):
+            self._find_mems_impl(sequence, callback)
+
+    def _find_mems_impl(self, sequence: str, callback):
+        fm = self.pindex.fm
+        pm = self._path_map
+        k = self.seed_len
+        thr = self.gocc_threshold if self.gocc_threshold else float("inf")
+        max_mem = self.max_mem if self.max_mem else float("inf")
+
+        start = 0
+        plen = 0
+        lo, hi = 0, fm.size
+        has_hit = False
+        nof_hits = 0
+        n = len(sequence)
+        while start + plen < n:
+            if plen >= k and (hi - lo) <= thr:
+                has_hit = True
+                occ = fm.locate(lo, hi)
+                sid, q = fm.text_pos_to_string(np.asarray(occ))
+                fwd = pm["lengths"][sid] - q - plen
+                gpos = pm["seq_off"][sid] + fwd
+                entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
+                for nid, noff in zip(
+                    pm["ids"][entry],
+                    gpos - pm["starts"][entry] + pm["base"][entry],
+                ):
+                    callback(
+                        Seed(int(nid), int(noff), 0, start, plen, int(hi - lo))
+                    )
+                    nof_hits += 1
+                if nof_hits >= max_mem:
+                    break
+            c = int(fm.codemap[ord(sequence[start + plen])])
+            # any non-ACGT byte restarts, as the batched route does
+            if has_hit or not (1 <= c <= 4):
+                lo, hi = 0, fm.size
+                start = start + plen + 1
+                plen = 0
+                has_hit = False
+                continue
+            nlo, nhi = fm.lf_step(c, lo, hi)
+            if nlo >= nhi:
+                lo, hi = 0, fm.size
+                start = start + plen + 1
+                plen = 0
+                has_hit = False
+                continue
+            lo, hi = nlo, nhi
+            plen += 1
+
+    def seeds_on_paths_seqs(
+        self, reads: Records, callback: Callable[[Seed], None]
+    ):
+        """Batched MEM query (library API used by aligners): every read
+        runs the find_mems automaton in one lockstep device loop
+        (ref: seed_finder.hpp:1459-1479 over index_iter.hpp:854-906). Hit
+        multiset per read matches seeds_on_paths_seq (read_offset = MEM
+        start, match_len = MEM length, gocc = occurrence count)."""
+        arr = self.find_mems_arrays(reads)
+        if arr is not None:
+            _emit_rows(arr, callback)
+
+    def find_mems_arrays(self, reads: Records):
+        """Columnar batched find_mems: structured SEED_DTYPE array, or
+        None when there is no MEM. The automaton runs on the device, one
+        LF step of every read per cursor position; locate and mapping run
+        on the host."""
+        fm = self.pindex.fm
+        if fm is None or fm.size == 0 or len(reads) == 0:
+            return None
+        self.stats.get_this_thread_stats().set_progress(ProgressEnum.FIND_MEMS)
+        with self.stats.timeit_ts("query-paths"):
+            k = self.seed_len
+            N = len(reads)
+            lut = np.zeros(256, dtype=np.int32)
+            for i, ch in enumerate("ACGT"):
+                lut[ord(ch)] = i + 1
+                lut[ord(ch.lower())] = i + 1
+            # scatter each read's coded bytes into its padded row through
+            # one flat ragged -> dense index; packed chunks feed their byte
+            # array directly
+            pk = reads.packed_view()
+            if pk is not None:
+                flat, off = pk
+                rlens = (off[1:] - off[:-1]).astype(np.int32)
+            else:
+                rlens = np.fromiter(
+                    (len(s) for s in reads.seqs), dtype=np.int32, count=N
+                )
+                flat = np.frombuffer(
+                    "".join(reads.seqs).encode("ascii"), dtype=np.uint8
+                )
+            L = int(rlens.max())
+            if L == 0:
+                return None
+            starts = np.zeros(N, dtype=np.int64)
+            np.cumsum(rlens[:-1], out=starts[1:])
+            total = int(rlens.sum())
+            within = np.arange(total, dtype=np.int64) - np.repeat(
+                starts, rlens
+            )
+            codes = np.zeros((N, L), dtype=np.int32)
+            codes[np.repeat(np.arange(N), rlens), within] = lut[flat]
+            thr = self.gocc_threshold or (2**31 - 1)
+            mm = self.max_mem or (2**31 - 1)
+            # a read emits at most one MEM per k+1 consumed positions
+            max_out = L // (k + 1) + 2
+            dev = self.device
+            out_lo, out_hi, out_start, out_plen, nout, _overflow = (
+                fm_ops.find_mems_device(
+                    self._get_fm_arrays(),
+                    torch.from_numpy(codes).to(dev),
+                    torch.from_numpy(rlens).to(dev),
+                    k, thr, mm, max_out,
+                )
+            )
+            nout = nout.cpu().numpy()
+            valid = (
+                np.arange(max_out, dtype=np.int32)[None, :] < nout[:, None]
+            )
+            if not valid.any():
+                return None
+            rr, _ = np.nonzero(valid)
+            lo_f, hi_f, start_f, plen_f = (
+                t.cpu().numpy()[valid].astype(np.int64)
+                for t in (out_lo, out_hi, out_start, out_plen))
+
+            # locate + graph mapping (the fwd flip uses each MEM's length)
+            pm = self._path_map
+            widths = hi_f - lo_f
+            total = int(widths.sum())
+            occ_rows = np.repeat(np.arange(len(widths)), widths)
+            within = np.arange(total) - np.repeat(
+                np.cumsum(widths) - widths, widths
+            )
+            occ_pos = fm.sa[lo_f[occ_rows] + within]
+            sid, q = fm.text_pos_to_string(occ_pos)
+            fwd = pm["lengths"][sid] - q - plen_f[occ_rows]
+            gpos = pm["seq_off"][sid] + fwd
+            entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
+            out = np.empty(total, dtype=SEED_DTYPE)
+            out["node_id"] = pm["ids"][entry]
+            out["node_offset"] = gpos - pm["starts"][entry] + pm["base"][entry]
+            out["read_id"] = reads.rec_offset + rr[occ_rows]
+            out["read_offset"] = start_f[occ_rows]
+            out["match_len"] = plen_f[occ_rows]
+            out["gocc"] = widths[occ_rows]
+            return out
+
+    def all_exact_matches(
+        self, reads: Records, callback: Callable[[Seed], None]
+    ):
+        """Whole-read exact matching over the path index on the host
+        (ref: all_exact_matches, index_iter.hpp:928-948; per-read
+        backward search, occurrences mapped to graph loci, match_len =
+        read length, gocc left 0 as in the reference). N is a real Dna5
+        symbol (code 5) on both the read and text sides."""
+        fm = self.pindex.fm
+        if fm is None or fm.size == 0:
+            return
+        pm = self._path_map
+        for rid in range(len(reads)):
+            seq = reads.seqs[rid]
+            if not seq:
+                continue
+            lo, hi = fm.backward_search(seq[::-1])
+            if lo >= hi:
+                continue
+            L = len(seq)
+            occ = fm.locate(lo, hi)
+            sid, q = fm.text_pos_to_string(np.asarray(occ))
+            fwd = pm["lengths"][sid] - q - L
+            gpos = pm["seq_off"][sid] + fwd
+            entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
+            for nid, noff in zip(
+                pm["ids"][entry], gpos - pm["starts"][entry] + pm["base"][entry]
+            ):
+                callback(
+                    Seed(int(nid), int(noff), reads.position_to_id(rid), 0, L, 0)
+                )
 
     # === seeds off paths: the host WalkTree =================================
     def seeds_off_paths(

@@ -17,7 +17,9 @@ from psi_tpu_torch.graphiter import HaplotyperRandomIter
 from psi_tpu_torch.pathutil import Path, sequence
 from psi_tpu_torch.simulate import make_pangenome_graph
 from psi_tpu_torch.ops import fm as fm_ops
-from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
+from psi_tpu_torch.ops import fm_fused, fm_pallas, fm_stream, fm_trie
+from psi_tpu_torch.records import Records
+from psi_tpu_torch.seed_finder import SeedFinder
 
 pytestmark = pytest.mark.cuda
 K = 12
@@ -153,6 +155,101 @@ def test_wrappers_reject_bad_cuda_inputs(index, dev):
         fm_stream.rank4_pair_stream(arr, pos[::2], pos[::2])
     with pytest.raises(ValueError, match="is on cpu"):
         fm_stream.rank4_pair_stream(arr, pos, pos.cpu())
+
+
+@pytest.mark.parametrize("order", ["scattered", "sorted"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_occ_gather_kernel_matches_plain(index, dev, width, order):
+    """occ_gather on the dense table ([n+1, 4]) and the padded one
+    ([n+1, 8]) at M = 0, 1, 257 and at a backward search's positions."""
+    fm, keys, _ = index
+    occ8 = torch.from_numpy(fm_pallas.occ_dense_padded(fm)).to(dev)
+    occ = occ8 if width == 8 else occ8[:, :4].contiguous()
+    rng = np.random.RandomState(width)
+    for m in (0, 1, 257, 2 * len(keys)):
+        pos = torch.from_numpy(rng.randint(0, fm.size + 1, m).astype(
+            np.int32)).to(dev)
+        if order == "sorted":
+            pos = torch.sort(pos).values
+        n0 = fm_pallas.gather_occ_rows.launches
+        got = fm_pallas.gather_occ_rows(occ, pos)
+        torch.cuda.synchronize()
+        assert fm_pallas.gather_occ_rows.launches == n0 + (m > 0)
+        assert got.shape == (m, width) and got.dtype == torch.int32
+        assert torch.equal(got, fm_pallas.gather_occ_rows_plain(occ, pos))
+    arrays = fm_ops.to_device(fm, dev, dense_occ=True)
+    assert torch.equal(arrays.occ_dense, occ8[:, :4])
+    codes = torch.from_numpy(fm_ops.keys_to_codes(keys, K)).to(dev)
+    n0 = fm_pallas.gather_occ_rows.launches
+    lo, hi = fm_ops.backward_search_codes(arrays, codes)
+    assert fm_pallas.gather_occ_rows.launches == n0 + K
+    plo, phi = fm_pallas.backward_search_pallas(occ8, arrays.C, fm.size,
+                                                codes)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    ref = fm_ops.backward_search_codes(arrays._replace(occ_dense=None), codes)
+    assert torch.equal(hi - lo, ref[1] - ref[0])
+
+
+def test_occ_gather_rejects_bad_inputs(index, dev):
+    fm, _, _ = index
+    occ = torch.from_numpy(fm_pallas.occ_dense_padded(fm)).to(dev)
+    pos = torch.zeros(64, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        fm_pallas.gather_occ_rows(occ, pos.long())
+    with pytest.raises(ValueError, match="W in"):
+        fm_pallas.gather_occ_rows(occ[:, :6].contiguous(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm_pallas.gather_occ_rows(occ[:, :4], pos)
+    with pytest.raises(ValueError, match="aligned"):
+        fm_pallas.gather_occ_rows(occ.reshape(-1)[1:-7].reshape(-1, 8), pos)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fm_pallas.gather_occ_rows(occ.cpu(), pos)
+    with pytest.raises(ValueError, match=r"positions must be \[M\]"):
+        fm_pallas.gather_occ_rows(occ, pos.reshape(8, 8))
+    with pytest.raises(ValueError, match="ACGT codes"):
+        fm_ops.backward_search_codes(
+            fm_ops.to_device(fm, dev, dense_occ=True),
+            torch.zeros((4, K), dtype=torch.int32, device=dev))
+
+
+def test_gather_route_and_mems_cuda_match_cpu(dev, monkeypatch):
+    """The gather route (PSI_STREAM=0, device and host locate) and the
+    MEM API on the card give the CPU's hits, and the route launched the
+    occ-row gather once per LF step."""
+    graph = make_pangenome_graph(30_000, 0.02, seed=8)
+    itr = HaplotyperRandomIter(graph, seed=12)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    rng = np.random.RandomState(4)
+    reads = hs[rng.randint(0, len(hs) - 100, 800)[:, None] + np.arange(100)]
+    recs = Records([f"r{i}" for i in range(800)],
+                   [r.tobytes().decode() for r in reads])
+    monkeypatch.setenv("PSI_STREAM", "0")
+    out = {}
+    for device in ("cuda", "cpu"):
+        finder = SeedFinder(graph, 20, device=device)
+        finder.create_path_index(1, patched=False)
+        seeds = finder.get_seeds(recs)
+        index = finder.index_reads(seeds)
+        rows = []
+        for locate in ("1", "0"):
+            monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
+            n0 = fm_pallas.gather_occ_rows.launches
+            arr = finder.seeds_on_paths_arrays(seeds, index)
+            launched = fm_pallas.gather_occ_rows.launches - n0
+            rows.append(np.sort(arr, order=list(arr.dtype.names)))
+        mems = finder.find_mems_arrays(recs)
+        out[device] = (rows, np.sort(mems, order=list(mems.dtype.names)),
+                       launched)
+    (rows, mems, launched), (crows, cmems, claunched) = out["cuda"], out["cpu"]
+    assert launched == 20 - finder._ftab_bits() and claunched == 0
+    assert len(rows[0]) > 0 and len(mems) > 0
+    for got in (rows[0], rows[1]):
+        assert got.tobytes() == crows[0].tobytes()
+    assert mems.tobytes() == cmems.tobytes()
 
 
 def test_cli_cuda_matches_cpu(tmp_path, dev):

@@ -14,7 +14,8 @@ import torch
 
 from psi_tpu_torch import _build, native
 from psi_tpu_torch.device import resolve
-from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
+from psi_tpu_torch.ops import fm as fm_ops
+from psi_tpu_torch.ops import fm_fused, fm_pallas, fm_stream, fm_trie
 from psi_tpu_torch.seed_finder import SeedFinder
 from psi_tpu_torch.simulate import make_pangenome_graph
 
@@ -39,6 +40,7 @@ def test_package_never_imports_jax():
 
 
 _JAX_BLOCKED_RUN = textwrap.dedent("""
+    import os
     import sys
     sys.modules["jax"] = None        # any `import jax` now raises
     sys.modules["psi_tpu"] = None    # and any import of the reference
@@ -69,6 +71,11 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     finder.prepare_onpath(index)
     on, off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(on) > 0 and len(off) > 0, (len(on), len(off))
+    os.environ["PSI_STREAM"] = "0"           # the gather route
+    gather = finder.seeds_on_paths_arrays(seeds, index)
+    assert len(gather) == len(on), (len(gather), len(on))
+    mems = finder.find_mems_arrays(reads)
+    assert len(mems) > 0
     loaded = [m for m, v in sys.modules.items()
               if v is not None and m.split(".")[0] in ("jax", "psi_tpu")]
     assert not loaded, loaded
@@ -95,8 +102,9 @@ def test_device_rule(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """SeedFinder and prepare run on the card unless told otherwise, so
-    without one they raise instead of falling back to the CPU."""
+    """SeedFinder, prepare, count_kmers_device and the blocked occ
+    gather run on the card unless told otherwise, so without one they
+    raise instead of falling back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     graph = make_pangenome_graph(2000, 0.02, seed=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -104,8 +112,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
     keys = np.arange(0, 4 ** 8, 97, dtype=np.uint64)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fm_trie.prepare(keys, 8)
-    assert SeedFinder(graph, 12, device="cpu").device.type == "cpu"
+    finder = SeedFinder(graph, 12, device="cpu")
+    assert finder.device.type == "cpu"
     assert fm_trie.prepare(keys, 8, device="cpu").parents.device.type == "cpu"
+    finder.create_path_index(1, patched=False)
+    fm = finder.pindex.fm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fm_ops.count_kmers_device(fm, keys, 8)
+    counts = fm_ops.count_kmers_device(fm, keys, 8, device="cpu")
+    assert counts.shape == keys.shape and counts.sum() > 0
+    occ8 = fm_pallas.occ_dense_padded(fm)
+    pos = np.arange(0, fm.size, 7, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fm_pallas.gather_occ_rows_blocked(occ8, pos)
+    np.testing.assert_array_equal(
+        fm_pallas.gather_occ_rows_blocked(occ8, pos, device="cpu"), occ8[pos])
 
 
 def _isolated_build(monkeypatch, tmp_path, nvcc_script=None):
@@ -147,7 +168,7 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     assert _build.build() == lib               # same sources: no rebuild
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
-               "rank.cu", "status.cu")
+               "rank.cu", "occ_gather.cu", "status.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
@@ -188,3 +209,5 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         fm_stream.rank4_stream(arrays, t)
     with pytest.raises(ValueError, match="unsupported device"):
         fm_stream.rank_stream(arrays, t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm_pallas.gather_occ_rows(t.reshape(-1, 8), t)

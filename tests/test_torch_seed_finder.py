@@ -2,7 +2,10 @@
 psi_tpu's CLI (its chained stream route and its defaults) on a small
 synthetic pan-genome, at gocc thresholds 0 and 5: equal lexsorted binary
 hit streams and equal report seedhits, with hits both on and off the
-indexed paths. Plus the cases the port does not cover yet, which raise."""
+indexed paths. psi_tpu's other on-path routes (the gather route and the
+trie search with a host locate, chosen by PSI_STREAM and
+PSI_DEVICE_LOCATE) and the MEM and whole-read APIs against psi_tpu's, in
+process. Plus the cases the port does not cover yet, which raise."""
 
 import json
 
@@ -13,10 +16,14 @@ import torch
 from psi_tpu import cli as jcli
 from psi_tpu.graphiter import HaplotyperRandomIter
 from psi_tpu.pathutil import Path, sequence
+from psi_tpu.records import Records as JRecords
+from psi_tpu.seed_finder import SeedFinder as JSeedFinder
 from psi_tpu.simulate import make_pangenome_graph
 from psi_tpu_torch import cli
+from psi_tpu_torch import simulate as tsim
 from psi_tpu_torch.ops import fm_fused
 from psi_tpu_torch.ops import traverse as trav
+from psi_tpu_torch.records import Records
 from psi_tpu_torch.seed_finder import SeedFinder
 
 
@@ -88,9 +95,135 @@ def test_cli_matches_psi_tpu(dataset, monkeypatch, gocc, paths):
     assert fm_fused.trie_level.launches == n0     # CPU: plain versions
 
 
+@pytest.fixture(scope="module")
+def finders():
+    """psi_tpu's and the port's SeedFinder (CPU) on the same bubble
+    graph, one path indexed, and the same reads: substrings of a random
+    haplotype with 1% substitutions, a few 'N's, and short reads."""
+    graph = make_pangenome_graph(20_000, 0.02, seed=8)
+    tgraph = tsim.make_pangenome_graph(20_000, 0.02, seed=8)
+    itr = HaplotyperRandomIter(graph, seed=12)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    rng = np.random.RandomState(5)
+    n, L = 300, 80
+    reads = hs[rng.randint(0, len(hs) - L, n)[:, None] + np.arange(L)]
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads = np.where(rng.random_sample(reads.shape) < 0.01,
+                     bases[rng.randint(0, 4, reads.shape)], reads)
+    reads[rng.random_sample(reads.shape) < 0.002] = ord("N")
+    seqs = [r.tobytes().decode() for r in reads]
+    seqs[3] = seqs[3][:15]
+    seqs[4] = "N" * 40
+    names = [f"r{i}" for i in range(n)]
+    jf = JSeedFinder(graph, 16)
+    tf = SeedFinder(tgraph, 16, device="cpu")
+    for f in (jf, tf):
+        f.create_path_index(1, patched=False)
+    return jf, tf, JRecords(names, seqs), Records(names, seqs)
+
+
+def _rows(arr):
+    """Lexsorted (node, offset, read, read offset, length, gocc) rows."""
+    if arr is None or not len(arr):
+        return np.zeros((0, 6), dtype=np.int64)
+    cols = np.stack([arr[f].astype(np.int64) for f in
+                     ("node_id", "node_offset", "read_id", "read_offset",
+                      "match_len", "gocc")], axis=1)
+    return cols[np.lexsort(cols.T[::-1])]
+
+
+def _seed_rows(seeds):
+    cols = np.array([(s.node_id, s.node_offset, s.read_id, s.read_offset,
+                      s.match_len, s.gocc) for s in seeds],
+                    dtype=np.int64).reshape(-1, 6)
+    return cols[np.lexsort(cols.T[::-1])]
+
+
+def _onpath(finder, reads):
+    seeds = finder.get_seeds(reads)
+    return _rows(finder.seeds_on_paths_arrays(seeds,
+                                              finder.index_reads(seeds)))
+
+
+@pytest.mark.parametrize("stream,locate,dense", [
+    ("0", "0", True), ("0", "1", True), ("0", "1", False), ("1", "0", True),
+], ids=["gather-hostlocate", "gather-devlocate", "gather-bitplanes",
+        "stream-hostlocate"])
+def test_onpath_routes_match_psi_tpu(finders, monkeypatch, stream, locate,
+                                     dense):
+    """psi_tpu's non-chain on-path routes, chosen by its PSI_STREAM and
+    PSI_DEVICE_LOCATE: the port's hit multiset equals psi_tpu's under the
+    same variables (and the same rank layout) and the port's chain's."""
+    jf, tf, jreads, treads = finders
+    for name in ("PSI_STREAM", "PSI_DEVICE_LOCATE"):
+        monkeypatch.delenv(name, raising=False)
+    chain = _onpath(tf, treads)
+    assert len(chain) > 500
+    monkeypatch.setenv("PSI_STREAM", stream)
+    monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
+    for f in (jf, tf):
+        f._fm_arrays = None
+        if not dense:
+            monkeypatch.setattr(type(f), "DENSE_OCC_BUDGET", 0)
+    got = _onpath(tf, treads)
+    want = _onpath(jf, jreads)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, chain)
+    arrays = tf._fm_arrays
+    if stream == "0":
+        assert (arrays.occ_dense is not None) == dense
+        assert (arrays.planes is not None) == (not dense)
+        assert arrays.sa is tf._get_sa()
+    else:
+        assert arrays is None             # the trie route needs no layout
+
+
+@pytest.mark.parametrize("thr,max_mem", [(0, 0), (1, 0), (0, 3)])
+def test_mem_api_matches_psi_tpu(finders, thr, max_mem):
+    """find_mems_arrays / seeds_on_paths_seqs (the batched automaton) and
+    the per-read seeds_on_paths_seq equal psi_tpu's, and each other, as
+    hit multisets, unlimited, at a gocc threshold and at a MEM cap."""
+    jf, tf, jreads, treads = finders
+    for f in (jf, tf):
+        f.gocc_threshold, f.max_mem = thr, max_mem
+    try:
+        got = _rows(tf.find_mems_arrays(treads))
+        np.testing.assert_array_equal(got, _rows(jf.find_mems_arrays(jreads)))
+        assert len(got) > 100
+        hits = []
+        tf.seeds_on_paths_seqs(treads, hits.append)
+        np.testing.assert_array_equal(_seed_rows(hits), got)
+        scalar, jscalar = [], []
+        for rid, seq in enumerate(treads.seqs[:60]):
+            tf.seeds_on_paths_seq(seq, lambda h, r=rid: scalar.append(
+                h._replace(read_id=r)))
+            jf.seeds_on_paths_seq(seq, lambda h, r=rid: jscalar.append(
+                h._replace(read_id=r)))
+        np.testing.assert_array_equal(_seed_rows(scalar),
+                                      _seed_rows(jscalar))
+        np.testing.assert_array_equal(_seed_rows(scalar),
+                                      got[got[:, 2] < 60])
+    finally:
+        for f in (jf, tf):
+            f.gocc_threshold, f.max_mem = 0, 0
+
+
+def test_all_exact_matches_matches_psi_tpu(finders):
+    jf, tf, jreads, treads = finders
+    got, want = [], []
+    tf.all_exact_matches(treads, got.append)
+    jf.all_exact_matches(jreads, want.append)
+    assert len(got) > 50
+    np.testing.assert_array_equal(_seed_rows(got), _seed_rows(want))
+
+
 def test_not_ported_yet_raises(dataset, monkeypatch):
     graph = make_pangenome_graph(3000, 0.02, seed=1)
-    for kw in ({"seed_mismatches": 1}, {"max_mem": 4}, {"devices": 2}):
+    for kw in ({"seed_mismatches": 1}, {"devices": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SeedFinder(graph, 12, **kw)
     finder = SeedFinder(graph, 12, device="cpu")
@@ -99,8 +232,6 @@ def test_not_ported_yet_raises(dataset, monkeypatch):
     monkeypatch.setattr(trav, "NODE_CAP", 10)
     with pytest.raises(NotImplementedError, match="WalkTree over its cap"):
         finder._get_trav_tree()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        finder.find_mems_arrays(None)
     with pytest.raises(NotImplementedError, match="item 9"):
         SeedFinder(graph, 12, device="cpu").create_path_index(
             1, patched=False, dmin=200, dmax=400)
