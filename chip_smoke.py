@@ -28,27 +28,36 @@ exits non-zero and prints no result):
     launch counters set to 0 just before each and read just after: the
     leaf ranges of the three routes are equal, the counts of the
     backward search equal the trie's, and each route launched its
-    kernels once per level (rank: twice per step); then the rank kernel
-    against its plain version on every step's inputs of the backward
-    search, with its times and bound there;
- 6. [gather] the FM gather route on chunk 1's distinct keys: the
-    occ-row gather kernel against its plain version on every step's
-    positions of `backward_search_codes` over the dense [n+1, 4] table
-    and over psi_tpu's padded [n+1, 8] table, scattered as the route
-    gives them and sorted, with device, enqueued, plain and
-    `torch.index_select` times and the bound; the ranges of
-    `backward_search_codes` on the dense (kernel), bit-plane and
-    checkpointed layouts equal each other and the trie's, with launch
-    counts and ms per chunk; `backward_search_pallas` on the padded
-    table and `gather_occ_rows_blocked` agree; then the MEM API:
-    `find_mems_arrays` over chunk 1's reads on cuda equals it on the cpu
-    (and the scalar `seeds_on_paths_seq` on the first 1,000 reads), with
-    its launches (one per cursor step) and time;
+    kernels once per level (the backward search: rank_lf_pair once per
+    step and nothing else); then rank_lf_pair against its plain version
+    on every step's inputs of the backward search, with its times, bound
+    and rank records read per key there, and the per-query rank, which
+    no route runs any more, replayed through `rank_stream` on the same
+    steps' lo and hi arrays (two launches a step, which check the
+    wrapper and count on no path), against its plain version, with its
+    times;
+ 6. [gather] the FM gather route on chunk 1's distinct keys: the ranges
+    of `backward_search_codes` on the dense (LF-step kernel, one launch
+    per step and nothing else), bit-plane and checkpointed layouts equal
+    each other and the trie's, with ms per chunk; the LF-step kernel
+    (occ_lf_pair) against its plain version on every step's inputs over
+    the dense [n+1, 4] table and psi_tpu's padded [n+1, 8] table, with
+    device, enqueued and plain times, its bound from the table sectors this
+    run's words land on, and the sectors per key; the row gather on the
+    same steps' positions, scattered as the route gives them and sorted,
+    with device, enqueued, plain and `torch.index_select` times and the
+    bound; `backward_search_pallas` on the padded table (one LF-step
+    launch per column) and `gather_occ_rows_blocked` (one row gather)
+    agree; the dense search's device operations by the profiler; then
+    the MEM API: `find_mems_arrays` over chunk 1's reads on cuda equals
+    it on the cpu (and the scalar `seeds_on_paths_seq` on the first
+    1,000 reads), with its launches (one LF step per cursor step) and
+    time;
  7. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level, and nothing else;
  8. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
-    only the occ-row gather, once per chunk and LF step, and a lexsorted
+    only the LF-step kernel, once per chunk and LF step, and a lexsorted
     hit stream byte-identical to phase 7's;
  9. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
@@ -254,6 +263,23 @@ def busy_ms(fn, per_run: int) -> float:
     return busy_us / 1e3 / per_run
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) that one fn() runs, by
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
 def max_abs_err(got, want) -> int:
     require(got.shape == want.shape,
             f"shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -368,6 +394,31 @@ def occ_gather_work(occ, pos):
         4 * pos.numel()
 
 
+def rank_lf_pair_work(c, lo, hi):
+    """Chars, lo and hi read, lo' and hi' written; the rank records, like
+    rows 1-9's payload, stay in L2 and are not counted."""
+    return nbytes(c, lo, hi) + nbytes(lo, hi), 16 * lo.numel()
+
+
+def occ_sectors(occ, c, lo, hi) -> int:
+    """Distinct 32-byte sectors of the occ table that the words
+    occ[lo, c-1] and occ[hi, c-1] land on."""
+    import torch
+
+    words = (torch.cat([lo, hi]).long() * occ.shape[1]
+             + (c.long() - 1).repeat(2))
+    return n_unique(words >> 3)          # 8 int32 words a sector
+
+
+def occ_lf_pair_work(occ, c, lo, hi):
+    """Chars, lo and hi read, lo' and hi' written, and one 32-byte sector
+    for each distinct sector of the table (past L2) that the (lo, c) and
+    (hi, c) words land on: a sector, not the 4-byte word, is the least
+    the card moves. Row 10's bound counts whole rows instead."""
+    return (nbytes(c, lo, hi) + nbytes(lo, hi)
+            + 32 * occ_sectors(occ, c, lo, hi)), 8 * lo.numel()
+
+
 def measure(name, kernel, plain, per_run, work, err, shape,
             plain_reps=PLAIN_REPS, library=None, tag="kernels") -> dict:
     """Device, enqueued and plain ms per launch of one kernel, beside its
@@ -394,8 +445,8 @@ def measure(name, kernel, plain, per_run, work, err, shape,
             "bytes": bytes_moved, "ops": ops, "shape": shape}
 
 
-#: the six kernels: wrapper (module, attribute), source, the TPU rows of
-#: the kernel table it replaces and their file:line
+#: the eight kernel entry points: wrapper (module, attribute), source, the
+#: TPU rows of the kernel table it replaces and their file:line
 KERNELS = {
     "trie_level": (("fm_fused", "trie_level"),
                    "psi_tpu_torch/csrc/trie_level.cu", [1],
@@ -414,10 +465,17 @@ KERNELS = {
                "psi_tpu/ops/fm_stream.py:878"]),
     "rank": (("fm_stream", "rank_stream"), "psi_tpu_torch/csrc/rank.cu", [9],
              ["psi_tpu/ops/fm_stream.py:166"]),
+    "rank_lf_pair": (("fm_stream", "rank_lf_pair"),
+                     "psi_tpu_torch/csrc/rank.cu", [9],
+                     ["psi_tpu/ops/fm_stream.py:166"]),
     "occ_gather": (("fm_pallas", "gather_occ_rows"),
                    "psi_tpu_torch/csrc/occ_gather.cu", [10, 11],
                    ["psi_tpu/ops/fm_pallas.py:31",
                     "psi_tpu/ops/fm_pallas.py:200"]),
+    "occ_lf_pair": (("fm_pallas", "lf_pair"),
+                    "psi_tpu_torch/csrc/occ_gather.cu", [10, 11],
+                    ["psi_tpu/ops/fm_pallas.py:31",
+                     "psi_tpu/ops/fm_pallas.py:200"]),
 }
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = {
@@ -430,11 +488,22 @@ LIBRARY = {
                "2-d gather and an add, no single call",
     "rank4": "none: four ranks at one position array, each a payload "
              "gather and a masked popcount; torch has no popcount operator",
-    "rank": "none: a per-query payload gather chosen by the query's char, "
-            "a masked popcount and an add; torch has no popcount operator",
+    "rank": "none: a per-query rank-record gather chosen by the query's "
+            "char, a masked popcount and an add; torch has no popcount "
+            "operator",
+    "rank_lf_pair": "none: per key a rank-record gather chosen by the "
+                    "key's char at lo and at hi, masked popcounts and C[c] "
+                    "added; torch has no popcount operator",
     "occ_gather": "torch.index_select(occ, 0, pos)",
+    "occ_lf_pair": "none: a gather of one word of lo's row and one of hi's, "
+                   "column chosen per key, and C[c] added; no single call "
+                   "gathers by row and column and adds",
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
+#: entry points that no route of the port runs (backward_search_sorted
+#: now steps with rank_lf_pair): checked and timed on a replay of their
+#: contract, with 0 launches on any path
+OFF_PATH = {"rank"}
 
 
 def _wrappers() -> dict:
@@ -585,12 +654,13 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     return records, extra
 
 
-def route_phase(finder, index) -> tuple[dict, dict, float]:
+def route_phase(finder, index) -> tuple[dict, dict, dict, dict]:
     """The level routes and the backward search on chunk 1's keys, each
     through its entry point with the launch counters set to 0 just before
     and read just after. Returns the launch counts per kernel (from the
     route that runs it), (device, enqueued) ms per chunk per route, and
-    the rank kernel's record on the backward search's own inputs."""
+    the records of rank_lf_pair and of the per-query rank on the backward
+    search's own inputs."""
     import numpy as np
     import torch
 
@@ -611,7 +681,7 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
         "fused": {"trie_level": levels},
         "two-pass pair": {"rank4_pair": levels, "compact": levels},
         "two-pass unpaired": {"rank4": 2 * levels, "compact": levels},
-        "backward_search_sorted": {"rank": 2 * levels},
+        "backward_search_sorted": {"rank_lf_pair": levels},
     }
     launches, ms = {}, {}
     leaves = {}
@@ -651,32 +721,60 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     ms["backward_search_sorted"] = (cuda_ms(run, ROUTE_REPS),
                                     enqueue_ms(run, ROUTE_REPS))
 
-    # the rank kernel on its own path: every step's (chars, lo) and
-    # (chars, hi) of the backward search, replayed with the plain version;
-    # after the first step these positions are scattered (random gathers)
+    # the LF-step kernel on its own path: every step's (chars, lo, hi) of
+    # the backward search, replayed with the plain version; after the
+    # first step these positions are scattered (random gathers)
     cols = args[0].t().contiguous()
     lo, hi = args[1], args[2]
     steps = []
     for j in range(cols.shape[0]):
-        steps += [(cols[j], lo), (cols[j], hi)]
-        base = sarr.C[cols[j].long()]
-        lo = base + fm_stream.rank_plain(sarr.payloadT, cols[j], lo)
-        hi = base + fm_stream.rank_plain(sarr.payloadT, cols[j], hi)
+        steps.append((cols[j], lo, hi))
+        lo, hi = fm_stream.rank_lf_pair_plain(sarr, cols[j], lo, hi)
     require(max_abs_err(lo, blo) == 0 and max_abs_err(hi, bhi) == 0,
             "backward_search_sorted differs from its plain replay")
-    rank_err = max(max_abs_err(fm_stream.rank_stream(sarr, c, pos),
-                               fm_stream.rank_plain(sarr.payloadT, c, pos))
-                   for c, pos in steps)
+    pair_err = max(max(max_abs_err(g, w) for g, w in zip(
+        fm_stream.rank_lf_pair(sarr, *step),
+        fm_stream.rank_lf_pair_plain(sarr, *step))) for step in steps)
+    require(pair_err == 0, f"rank_lf_pair differs from its plain version by "
+            f"{pair_err} on the backward search's steps")
+    # records read per key: one, and a second where hi's block differs
+    records = sum(float(((lo >> 5) != (hi >> 5)).float().mean())
+                  for _, lo, hi in steps) / len(steps) + 1
+    shape = f"{len(uniq)} keys x {len(steps)} steps of backward_search_sorted"
+    pair_rec = measure(
+        "rank_lf_pair",
+        lambda: [fm_stream.rank_lf_pair(sarr, *step) for step in steps],
+        lambda: [fm_stream.rank_lf_pair_plain(sarr, *step) for step in steps],
+        len(steps), [rank_lf_pair_work(*step) for step in steps], pair_err,
+        shape, plain_reps=1, tag="routes")
+    pair_rec["records_per_key"] = records
+    phase("routes", f"rank_lf_pair reads {records:.4f} rank records (32-byte "
+          f"sectors) per key and step")
+
+    # the per-query rank (psi_tpu's rank_stream contract), which no route
+    # of the port runs any more: a replay through its entry point on the
+    # same steps' lo and hi, 2 launches a step, that checks the wrapper
+    queries = [(c, pos) for c, lo, hi in steps for pos in (lo, hi)]
+    torch.cuda.synchronize()
+    reset_counters()
+    ranked = [fm_stream.rank_stream(sarr, c, pos) for c, pos in queries]
+    torch.cuda.synchronize()
+    got = read_counters()
+    require(got == {**ZERO_COUNTS, "rank": len(queries)},
+            f"rank_stream over {len(queries)} arrays launched {got}")
+    rank_err = max(max_abs_err(r, fm_stream.rank_plain(sarr.payloadT, c, pos))
+                   for r, (c, pos) in zip(ranked, queries))
     require(rank_err == 0, f"rank differs from its plain version by "
             f"{rank_err} on the backward search's positions")
     rank_rec = measure(
         "rank",
-        lambda: [fm_stream.rank_stream(sarr, c, pos) for c, pos in steps],
+        lambda: [fm_stream.rank_stream(sarr, c, pos) for c, pos in queries],
         lambda: [fm_stream.rank_plain(sarr.payloadT, c, pos)
-                 for c, pos in steps],
-        len(steps), [rank_work(c, pos) for c, pos in steps], rank_err,
-        f"{len(uniq)} keys x {len(steps)} launches (lo and hi per step) of "
-        f"backward_search_sorted", plain_reps=1)
+                 for c, pos in queries],
+        len(queries), [rank_work(c, pos) for c, pos in queries], rank_err,
+        f"{len(uniq)} keys x {len(queries)} launches (lo and hi per step) of "
+        f"backward_search_sorted", plain_reps=1, tag="routes")
+    rank_rec["replay_launches"] = len(queries)
     blo, bhi = blo.cpu().numpy(), bhi.cpu().numpy()
     tlo, thi = leaves["fused"]
     require(np.array_equal(bhi - blo, thi - tlo),
@@ -691,7 +789,7 @@ def route_phase(finder, index) -> tuple[dict, dict, float]:
     for name, (dev_ms, enq) in ms.items():
         phase("routes", f"{name}: {dev_ms:.4f} ms/chunk on the device, "
               f"{enq:.4f} enqueued")
-    return launches, ms, rank_rec
+    return launches, ms, pair_rec, rank_rec
 
 
 def _same_ranges(got, want) -> bool:
@@ -714,11 +812,12 @@ def seed_rows(arr):
     return cols[np.lexsort(cols.T[::-1])]
 
 
-def gather_phase(finder, reads, index) -> tuple[dict, dict]:
-    """The FM gather route on chunk 1: the occ-row gather kernel on its
-    path's positions at both table widths, the three rank layouts, the
-    padded-table and blocked entry points, and the MEM API. Returns the
-    kernel's record and the route facts."""
+def gather_phase(finder, reads, index) -> tuple[dict, dict, dict]:
+    """The FM gather route on chunk 1: the three rank layouts, the LF-step
+    kernel and the row gather on the route's own inputs at both table
+    widths, the padded-table and blocked entry points, and the MEM API.
+    Returns the row gather's record, the LF-step kernel's and the route
+    facts."""
     import numpy as np
     import torch
 
@@ -753,7 +852,8 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict]:
         lo, hi = fm_ops.backward_search_codes(arr, codes)
         torch.cuda.synchronize()
         got = read_counters()
-        want = {**ZERO_COUNTS, "occ_gather": steps if name == "dense" else 0}
+        want = {**ZERO_COUNTS,
+                "occ_lf_pair": steps if name == "dense" else 0}
         require(got == want, f"backward_search_codes ({name}) launched {got}")
         ranges[name] = (lo.cpu().numpy(), hi.cpu().numpy())
         # one sync per call (the code check), so time it on the host clock
@@ -767,24 +867,54 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict]:
                 f"backward_search_codes ({name}) differs from the trie")
     found = int((trie[1] > trie[0]).sum())
 
-    # every step's positions of the dense route, replayed with the plain
-    # gather; after the first step they are scattered over the text
+    # every step's inputs of the dense route, replayed with the plain
+    # version; after the first step the positions scatter over the text
     weights = 4 ** torch.arange(p - 1, -1, -1, device=dev)
     start = arrays.ftab[((codes[:, :p].long() - 1) * weights).sum(dim=1)]
     lo, hi = start[:, 0].contiguous(), start[:, 1].contiguous()
-    positions = []
-    for c in codes[:, p:].t():
-        positions.append(torch.cat([lo, hi]))
-        rows = fm_pallas.gather_occ_rows_plain(arrays.occ_dense,
-                                               positions[-1])
-        occ_c = rows.gather(1, (c.long() - 1).repeat(2)[:, None])[:, 0]
-        base = arrays.C[c.long()]
-        lo, hi = base + occ_c[: len(uniq)], base + occ_c[len(uniq):]
+    lf_steps = []
+    for c in codes[:, p:].t().contiguous():
+        lf_steps.append((c, lo, hi))
+        lo, hi = fm_pallas.lf_pair_plain(arrays.occ_dense, arrays.C, c, lo, hi)
     require(_same_ranges((lo.cpu().numpy(), hi.cpu().numpy()),
                          ranges["dense"]),
             "backward_search_codes differs from its plain replay")
     occ8_np = fm_pallas.occ_dense_padded(fm)
     tables = {4: arrays.occ_dense, 8: torch.from_numpy(occ8_np).to(dev)}
+
+    # the LF-step kernel on every step at both widths
+    lf_err, lf_variants = 0, {}
+    for width, occ in tables.items():
+        e = max(max(max_abs_err(g, w) for g, w in zip(
+            fm_pallas.lf_pair(occ, arrays.C, *st),
+            fm_pallas.lf_pair_plain(occ, arrays.C, *st)))
+            for st in lf_steps)
+        require(e == 0, f"occ_lf_pair W={width} differs from lf_pair_plain "
+                f"by {e}")
+        lf_err = max(lf_err, e)
+        work = [occ_lf_pair_work(occ, *st) for st in lf_steps]
+        run = (lambda occ=occ: [fm_pallas.lf_pair(occ, arrays.C, *st)
+                                for st in lf_steps])
+        rec = measure(
+            f"occ_lf_pair W={width}", run,
+            lambda occ=occ: [fm_pallas.lf_pair_plain(occ, arrays.C, *st)
+                             for st in lf_steps],
+            len(lf_steps), work, e,
+            f"{len(lf_steps)} launches of {len(uniq)} keys (lo and hi per LF "
+            f"step), table {tuple(occ.shape)}", tag="gather")
+        rec["sectors_per_key"] = sum(
+            occ_sectors(occ, *st) for st in lf_steps) / (
+            len(lf_steps) * len(uniq))
+        rec["busy_ms"] = busy_ms(run, len(lf_steps))
+        phase("gather", f"occ_lf_pair W={width}: "
+              f"{rec['sectors_per_key']:.4f} distinct table sectors per key "
+              f"and step; device busy by the profiler "
+              f"{1e3 * rec['busy_ms']:.3f} us/launch")
+        lf_variants[f"W{width}"] = rec
+
+    # the row gather on the same steps' positions, scattered as the route
+    # gives them and sorted, as gather_occ_rows_blocked gives them
+    positions = [torch.cat([lo, hi]) for _, lo, hi in lf_steps]
     orders = {"scattered": positions,
               "sorted": [torch.sort(q).values for q in positions]}
     err, variants = 0, {}
@@ -824,25 +954,32 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict]:
                       f"{k} {1e3 * v:.3f}" for k, v in rec["busy_ms"].items()))
             variants[f"W{width} {order}"] = rec
 
-    # psi_tpu's padded-table search (from the root) and blocked gather
+    # psi_tpu's padded-table search (from the root) and blocked gather,
+    # each through its entry point
     reset_counters()
     plo, phi = fm_pallas.backward_search_pallas(tables[8], arrays.C, fm.size,
                                                 codes)
     got = read_counters()
-    require(got == {**ZERO_COUNTS, "occ_gather": k},
+    require(got == {**ZERO_COUNTS, "occ_lf_pair": k},
             f"backward_search_pallas launched {got}")
     require(_same_ranges((plo.cpu().numpy(), phi.cpu().numpy()), trie),
             "backward_search_pallas differs from the trie")
     q = positions[1].cpu().numpy()
-    require(np.array_equal(fm_pallas.gather_occ_rows_blocked(occ8_np, q,
-                                                           device=dev),
-                           occ8_np[q]),
+    reset_counters()
+    blocked = fm_pallas.gather_occ_rows_blocked(occ8_np, q, device=dev)
+    blocked_launches = read_counters()
+    require(blocked_launches == {**ZERO_COUNTS, "occ_gather": 1},
+            f"gather_occ_rows_blocked launched {blocked_launches}")
+    require(np.array_equal(blocked, occ8_np[q]),
             "gather_occ_rows_blocked differs from the table's rows")
     del tables[8]
+    # device operations (kernels, copies, fills) of one dense search
+    dense_ops = device_ops(lambda: fm_ops.backward_search_codes(arrays, codes))
     phase("gather", f"ranges of the dense, bit-plane and checkpointed "
           f"layouts and of backward_search_pallas equal the trie's ({found} "
           f"keys present); gather_occ_rows_blocked equal on "
-          f"{len(q)} positions")
+          f"{len(q)} positions; the dense search ran {dense_ops} device "
+          f"operations for {steps} LF steps")
     for name, t in layout_ms.items():
         phase("gather", f"backward_search_codes ({name}): {t:.4f} ms/chunk "
               f"(host clock, ends in a synchronize)")
@@ -857,7 +994,7 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict]:
     mem_s = time.monotonic() - t0
     mem_launches = read_counters()
     L = int(np.diff(reads.packed_view()[1]).max())
-    require(mem_launches == {**ZERO_COUNTS, "occ_gather": L},
+    require(mem_launches == {**ZERO_COUNTS, "occ_lf_pair": L},
             f"find_mems_arrays launched {mem_launches}, expected {L}")
     t0 = time.monotonic()
     mems_cpu = cpu.find_mems_arrays(reads)
@@ -876,17 +1013,22 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict]:
     require(np.array_equal(scalar, rows[rows[:, 2] < n_scalar]),
             "find_mems_arrays differs from seeds_on_paths_seq")
     phase("gather", f"find_mems_arrays over {len(reads)} reads: {len(mems)} "
-          f"MEM hits, {mem_s:.3f} s on cuda ({L} launches of occ_gather), "
+          f"MEM hits, {mem_s:.3f} s on cuda ({L} launches of occ_lf_pair), "
           f"{cpu_s:.3f} s on cpu, equal; first {n_scalar} reads equal "
           f"seeds_on_paths_seq ({len(scalar)} hits)")
     rec = dict(variants["W4 scattered"])
     rec["variants"] = variants
     rec["max_abs_err"] = err
+    lf_rec = dict(lf_variants["W4"])
+    lf_rec["variants"] = lf_variants
+    lf_rec["max_abs_err"] = lf_err
     facts = {"steps": steps, "dense_build_s": build_s,
              "layout_ms_per_chunk": layout_ms, "keys_present": found,
+             "dense_device_ops": dense_ops,
+             "blocked_launches": blocked_launches["occ_gather"],
              "mems": {"reads": len(reads), "hits": len(mems),
                       "launches": L, "cuda_s": mem_s, "cpu_s": cpu_s}}
-    return rec, facts
+    return rec, lf_rec, facts
 
 
 # --- phases 7 to 9: the CLI ----------------------------------------------------
@@ -1017,11 +1159,13 @@ def main(argv=None) -> int:
               f"{time.monotonic() - t0:.1f} s")
         reads, seeds, index = first_chunk_index(finder, fastq, args.chunk)
         records, extra = kernel_phase(finder, index)
-        launches, route_ms, records["rank"] = route_phase(finder, index)
+        (launches, route_ms, records["rank_lf_pair"],
+         records["rank"]) = route_phase(finder, index)
         extra["route_ms_per_chunk"] = {
             r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
-        records["occ_gather"], extra["gather"] = gather_phase(finder, reads,
-                                                              index)
+        (records["occ_gather"], records["occ_lf_pair"],
+         extra["gather"]) = gather_phase(finder, reads, index)
+        launches["occ_gather"] = extra["gather"]["blocked_launches"]
         extra.update(profile_query(finder, seeds, index))
 
         reset_counters()
@@ -1051,7 +1195,7 @@ def main(argv=None) -> int:
             del os.environ["PSI_STREAM"]
         gather_res = summarize(rep_g, "gather", wall)
         steps = extra["gather"]["steps"]
-        want = {**ZERO_COUNTS, "occ_gather": len(rep_g["chunks"]) * steps}
+        want = {**ZERO_COUNTS, "occ_lf_pair": len(rep_g["chunks"]) * steps}
         require(gather_launches == want,
                 f"the gather-route CLI run launched {gather_launches}, "
                 f"expected {want} ({len(rep_g['chunks'])} chunks x {steps} "
@@ -1066,7 +1210,7 @@ def main(argv=None) -> int:
               f"hits/s (trie route "
               f"{cuda_res.get('kmer_queries_per_s', 0):.1f} and "
               f"{cuda_res.get('hits_per_s', 0):.1f})")
-        launches["occ_gather"] = gather_launches["occ_gather"]
+        launches["occ_lf_pair"] = gather_launches["occ_lf_pair"]
 
         hits_cpu, rep_cpu, wall = run_cli(gfa, fastq, tmp, "cpu", args.chunk)
         summarize(rep_cpu, "cpu", wall)
@@ -1086,17 +1230,23 @@ def main(argv=None) -> int:
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
              "rank4": "trie_search(fused=False, pair=False), chunk 1",
-             "rank": "backward_search_sorted, chunk 1",
-             "occ_gather": f"psikt CLI with PSI_STREAM=0 (the gather "
-                           f"route), {len(rep_g['chunks'])} chunks"}
+             "rank": "none: no route of the port runs it; its numbers come "
+                     "from a replay of rank_stream over "
+                     "backward_search_sorted's lo and hi of every step, "
+                     "chunk 1",
+             "rank_lf_pair": "backward_search_sorted, chunk 1",
+             "occ_gather": "gather_occ_rows_blocked, one call",
+             "occ_lf_pair": f"psikt CLI with PSI_STREAM=0 (the gather "
+                            f"route), {len(rep_g['chunks'])} chunks"}
     kernels = []
     for kname, (_, source, rows, replaces) in KERNELS.items():
-        require(launches[kname] > 0, f"{kname} was never launched on its path")
+        require(kname in OFF_PATH or launches[kname] > 0,
+                f"{kname} was never launched on its path")
         rec = records[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces[0], "replaces_all": replaces,
-            "tpu_rows": rows, "launches": launches[kname],
+            "tpu_rows": rows, "launches": launches.get(kname, 0),
             "launches_path": paths[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "enqueued_ms": rec["enqueued_ms"], "plain_ms": rec["plain_ms"],
@@ -1107,14 +1257,17 @@ def main(argv=None) -> int:
             "shape": rec["shape"],
         })
         if kname == "rank":
+            kernels[-1]["replay_launches"] = rec["replay_launches"]
             kernels[-1]["trie_positions"] = {
                 k: records["rank (trie positions)"][k] for k in
                 ("ms", "enqueued_ms", "plain_ms", "bound_ms", "shape")}
-        if kname == "occ_gather":
+        if kname == "rank_lf_pair":
+            kernels[-1]["records_per_key"] = rec["records_per_key"]
+        if kname in ("occ_gather", "occ_lf_pair"):
             kernels[-1]["variants"] = {
-                v: {k: r[k] for k in ("ms", "enqueued_ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bytes",
-                                      "busy_ms")}
+                v: {k: r.get(k) for k in ("ms", "enqueued_ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bytes",
+                                          "busy_ms", "sectors_per_key")}
                 for v, r in rec["variants"].items()}
     summary = {
         "kernels": kernels,

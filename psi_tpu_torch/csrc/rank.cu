@@ -1,21 +1,39 @@
-// Per-query rank: rank(c_i, pos_i), the count of c_i in bwt[0:pos_i].
+// Rank over payloadR, the per-block rank record (ops/fm_stream.py):
+//   psi_rank          rank(c_i, pos_i) per query, psi_tpu's rank_stream
+//                     contract;
+//   psi_rank_lf_pair  one LF step of a (lo, hi) pair per key:
+//                     (C[c] + rank(c, lo), C[c] + rank(c, hi)).
 //
-// Replaces psi_tpu/ops/fm_stream.py::_rank_kernel (via rank_stream and
-// backward_search_sorted), which walks each 1024-query slab over the
-// min..max range of payload windows its positions fall in, one masked
-// pass per window. Thread i reads its own column instead:
-//   out[i] = occ_c[b] + popc(match_c & below)
-// with c = chars[i] in 1..4 (payload_rank.cuh has the arithmetic).
+// Both replace psi_tpu/ops/fm_stream.py::_rank_kernel (:166, via
+// rank_stream and backward_search_sorted), which walks each 1024-query
+// slab over the min..max range of payload windows its positions fall in,
+// one masked pass per window. Here each thread reads its own block's
+// record instead.
 //
-// What bounds it on an H100: per query, two 4-byte reads (char, pos),
-// four dependent-free 4-byte gathers from one payloadT column (the occ
-// row of c and the three plane words; payloadT is 20 MB at 10 Mbp and
-// fits the 50 MB L2) and one coalesced 4-byte write. In
-// backward_search_sorted every step after the first ranks positions that
-// are scattered over the whole text, so this is a random-gather workload
-// bound by L2 sectors, not by HBM bandwidth. The TPU kernel's window
-// loop made scattered positions cost many passes; here they cost
-// nothing more than sorted ones apart from L2 locality.
+// payloadR [NBpad, 8] int32: row b is (occ_1..occ_4, match_1..match_4) of
+// text block b = pos >> 5, the occ checkpoints of ACGT before the block
+// and the per-char match-mask words of its 32 positions. A row is 32
+// bytes, one L2 sector, 32-byte aligned (the wrapper checks the base), so
+//   rank(c, pos) = rec[b][c-1] + popc(rec[b][3+c] & below(pos))
+// reads two words of one sector.
+//
+// What bounds it on an H100: every step after the first of
+// backward_search_sorted ranks positions scattered over the whole text,
+// so each key's record is a random read. payloadR is 10 MB at 10 Mbp and
+// stays in the 50 MB L2, so the cost is L2 sectors per key, not HBM bytes.
+// The payloadT layout ([16, NBpad], row-major) put the four words of one
+// rank in four rows 4 * NBpad bytes apart: four sectors for 16 useful
+// bytes, and eight per LF step when lo and hi were ranked by two
+// launches. psi_rank_lf_pair ranks lo and hi in one thread: it loads the
+// record of lo's block and a second one only where hi's block differs (a
+// present key's range is narrow, so lo and hi usually share a block),
+// adds C[c] from shared memory and writes both ends: about one sector
+// per key and one launch per step. What remains is the 20 bytes per key
+// of chars, positions and results (coalesced).
+//
+// Neither chars (1..4) nor positions ([0, n]) are checked on the device
+// (psi_tpu's contract); the wrappers check shapes, types, contiguity and
+// the record's alignment.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -25,34 +43,84 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRecord = 8;  // int32 words per payloadR row
 
-__global__ void rank_kernel(const int32_t* __restrict__ payloadT, int nbpad,
+// rank(c, pos) from the record `rec` of pos's block.
+__device__ __forceinline__ int32_t rank_in(const int32_t* __restrict__ rec,
+                                           int c, int32_t pos) {
+  const uint32_t match = static_cast<uint32_t>(__ldg(rec + 3 + c));
+  return __ldg(rec + c - 1) + __popc(match & psi::below_mask(pos));
+}
+
+__device__ __forceinline__ const int32_t* record(
+    const int32_t* __restrict__ payloadR, int32_t pos) {
+  return payloadR + static_cast<size_t>(static_cast<uint32_t>(pos) >> 5) *
+                        kRecord;
+}
+
+__global__ void rank_kernel(const int32_t* __restrict__ payloadR,
                             const int32_t* __restrict__ chars,
                             const int32_t* __restrict__ pos,
                             int32_t* __restrict__ out, int m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const size_t nb = static_cast<size_t>(nbpad);
-  const int c = chars[i];
-  const int32_t p = pos[i];
-  const uint32_t b = static_cast<uint32_t>(p) >> 5;
-  const uint32_t p0 = static_cast<uint32_t>(__ldg(payloadT + 6 * nb + b));
-  const uint32_t p1 = static_cast<uint32_t>(__ldg(payloadT + 7 * nb + b));
-  const uint32_t p2 = static_cast<uint32_t>(__ldg(payloadT + 8 * nb + b));
-  out[i] = __ldg(payloadT + c * nb + b) +
-           __popc(psi::match_word(p0, p1, p2, c) & psi::below_mask(p));
+  const int32_t p = __ldg(pos + i);
+  out[i] = rank_in(record(payloadR, p), __ldg(chars + i), p);
+}
+
+__global__ void rank_lf_pair_kernel(const int32_t* __restrict__ payloadR,
+                                    const int32_t* __restrict__ C,
+                                    const int32_t* __restrict__ chars,
+                                    const int32_t* __restrict__ lo,
+                                    const int32_t* __restrict__ hi,
+                                    int32_t* __restrict__ lo_out,
+                                    int32_t* __restrict__ hi_out, int m) {
+  __shared__ int32_t c_base[5];  // C[0..4]; chars are 1..4
+  if (threadIdx.x < 5) c_base[threadIdx.x] = C[threadIdx.x];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int c = __ldg(chars + i);
+  const int32_t l = __ldg(lo + i);
+  const int32_t h = __ldg(hi + i);
+  const int32_t base = c_base[c];
+  const int32_t* rec_lo = record(payloadR, l);
+  const uint32_t match_lo = static_cast<uint32_t>(__ldg(rec_lo + 3 + c));
+  const int32_t occ_lo = __ldg(rec_lo + c - 1);
+  lo_out[i] = base + occ_lo + __popc(match_lo & psi::below_mask(l));
+  if ((static_cast<uint32_t>(h) >> 5) == (static_cast<uint32_t>(l) >> 5)) {
+    hi_out[i] = base + occ_lo + __popc(match_lo & psi::below_mask(h));
+  } else {
+    hi_out[i] = base + rank_in(record(payloadR, h), c, h);
+  }
 }
 
 }  // namespace
 
-extern "C" int psi_rank(const void* payloadT, int nbpad, const void* chars,
+extern "C" int psi_rank(const void* payloadR, const void* chars,
                         const void* pos, void* out, int m, void* stream) {
   if (m > 0) {
     const int grid = (m + kThreads - 1) / kThreads;
     rank_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(payloadT), nbpad,
+        static_cast<const int32_t*>(payloadR),
         static_cast<const int32_t*>(chars), static_cast<const int32_t*>(pos),
         static_cast<int32_t*>(out), m);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int psi_rank_lf_pair(const void* payloadR, const void* C,
+                                const void* chars, const void* lo,
+                                const void* hi, void* lo_out, void* hi_out,
+                                int m, void* stream) {
+  if (m > 0) {
+    const int grid = (m + kThreads - 1) / kThreads;
+    rank_lf_pair_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(payloadR), static_cast<const int32_t*>(C),
+        static_cast<const int32_t*>(chars), static_cast<const int32_t*>(lo),
+        static_cast<const int32_t*>(hi), static_cast<int32_t*>(lo_out),
+        static_cast<int32_t*>(hi_out), m);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,11 @@ Three rank layouts, as in psi_tpu:
     for the intra-block count;
   * bit-plane: occ rows + the BWT's three bit planes packed 32 positions a
     word, [nblocks+1, 3, 4] (uint32 bits held in int32);
-  * dense: the full per-position occ table [n+1, 4] int32, one row gather
-    per rank through csrc/occ_gather.cu (ops/fm_pallas.py).
+  * dense: the full per-position occ table [n+1, 4] int32; one LF step
+    of lo and hi is one launch of csrc/occ_gather.cu's psi_occ_lf_pair
+    (ops/fm_pallas.lf_pair).
 
-Everything but the dense gather is plain PyTorch: in psi_tpu it is XLA
+Everything but the dense step is plain PyTorch: in psi_tpu it is XLA
 code, not Pallas. Unsigned words are widened to int64 and masked to 32
 bits, as the kernels' plain versions do.
 """
@@ -175,8 +176,8 @@ def _rank(arrays: FMArrays, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def _rank_fn(arrays: FMArrays):
     """Batched rank of the bit-plane or checkpointed layout. The dense
-    layout has no single-position rank here: `_lf_pair` ranks lo and hi
-    together there, in one occ-row gather."""
+    layout has no single-position rank here: `_lf_pair` steps lo and hi
+    together there, in one lf_pair launch."""
     if arrays.planes is not None:
         return lambda c, i: _rank_bitplane(arrays, c, i)
     return lambda c, i: _rank(arrays, c, i)
@@ -221,8 +222,8 @@ def backward_search_codes(
             lo = start[:, 0].contiguous()
             hi = start[:, 1].contiguous()
             rest = codes[:, p:]
-    for c in rest.t():
-        lo, hi = _lf_pair(arrays, c.contiguous(), lo, hi)
+    for c in rest.t().contiguous():
+        lo, hi = _lf_pair(arrays, c, lo, hi)
     return lo, hi
 
 
@@ -240,7 +241,7 @@ def find_mems_device(
     count <= threshold; restart after a hit / mismatch / 'N';
     ref: include/psi/index_iter.hpp:854-906), one lockstep step per
     cursor position, so L steps cover the whole batch. Each step is one
-    LF step of every read's (lo, hi): one occ-row gather on the dense
+    LF step of every read's (lo, hi): one lf_pair launch on the dense
     layout.
 
     Returns (out_lo, out_hi, out_start, out_plen int32 [N, max_out],

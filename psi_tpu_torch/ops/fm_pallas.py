@@ -7,16 +7,23 @@ table is, for every query,
     new_lo = C[c] + occ[lo, c-1]
     new_hi = C[c] + occ[hi, c-1]
 
-so its only memory work is the gather of whole occ rows. `gather_occ_rows`
-runs csrc/occ_gather.cu (one thread per row) for CUDA tensors, counting
-those launches in `.launches`, and its plain PyTorch version for CPU
-tensors; it raises on any other device and never falls back.
+so its only memory work is one word of lo's occ row and one of hi's.
+Two wrappers over csrc/occ_gather.cu, each running its kernel for CUDA
+tensors and counting those launches in `.launches`, its plain PyTorch
+version for CPU tensors, and raising on any other device (neither falls
+back):
+
+  gather_occ_rows  psi_occ_gather   whole rows at positions, one thread
+                                    per row
+  lf_pair          psi_occ_lf_pair  the step above for every key, a
+                                    lane pair per key, one launch per step
 
 psi_tpu's two Pallas kernels (`_step_kernel` behind `gather_occ_rows`, and
 the windowed kernel behind `gather_occ_rows_blocked`) differ only in how
-rows reach VMEM, so both map onto that one kernel. The tables it takes:
-psi_tpu's padded `[n+1, 8]` (`occ_dense_padded`) and `to_device`'s dense
-`[n+1, 4]` layout (ops/fm.py).
+rows reach VMEM, so both map onto the row gather; `lf_pair` folds into
+the gather what `backward_search_pallas` does with `_step_kernel`'s rows.
+The tables both take: psi_tpu's padded `[n+1, 8]` (`occ_dense_padded`)
+and `to_device`'s dense `[n+1, 4]` layout (ops/fm.py).
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ WIDTHS = (4, 8)
 
 _OCC_GATHER_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_OCC_LF_PAIR_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p]
 
 
 def gather_occ_rows_plain(occ: torch.Tensor,
@@ -86,33 +97,68 @@ def check_codes(codes: torch.Tensor) -> None:
         raise ValueError(f"codes must be ACGT codes 1..4; got {bad}")
 
 
-def lf_pair(occ: torch.Tensor, C: torch.Tensor, c: torch.Tensor,
-            lo: torch.Tensor, hi: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One LF step of lo and hi on a dense occ table, in ONE gather of
-    the concatenated positions: (C[c] + occ[lo, c-1], C[c] + occ[hi, c-1]).
-    c holds codes 1..4."""
+def lf_pair_plain(occ: torch.Tensor, C: torch.Tensor, c: torch.Tensor,
+                  lo: torch.Tensor, hi: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of csrc/occ_gather.cu's psi_occ_lf_pair: one
+    row gather of the concatenated positions, then column c-1 and C[c]."""
     m = lo.shape[0]
-    rows = gather_occ_rows(occ, torch.cat([lo, hi]))
+    rows = gather_occ_rows_plain(occ, torch.cat([lo, hi]))
     col = (c.long() - 1).repeat(2)[:, None]
     occ_c = rows.gather(1, col)[:, 0]
     base = C[c.long()]
     return base + occ_c[:m], base + occ_c[m:]
 
 
+def lf_pair(occ: torch.Tensor, C: torch.Tensor, c: torch.Tensor,
+            lo: torch.Tensor, hi: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LF step of lo and hi on a dense occ table [R, W] (W in
+    WIDTHS): (C[c] + occ[lo, c-1], C[c] + occ[hi, c-1]), int32 [M] each,
+    in one launch. c holds codes 1..4 and lo, hi positions in [0, R);
+    neither is checked on the device."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return lf_pair_plain(occ, C, c, lo, hi)
+    if dev.type != "cuda":
+        raise ValueError(f"lf_pair: unsupported device {dev}")
+    _build.check_int32("lf_pair", dev, occ=occ, C=C, c=c, lo=lo, hi=hi)
+    if occ.dim() != 2 or occ.shape[1] not in WIDTHS:
+        raise ValueError(f"lf_pair: occ must be [R, W] with W in {WIDTHS}, "
+                         f"not {tuple(occ.shape)}")
+    if lo.dim() != 1 or not lo.shape == hi.shape == c.shape:
+        raise ValueError("lf_pair: c, lo and hi must be [M] each")
+    m = lo.shape[0]
+    lo_out = torch.empty(m, dtype=torch.int32, device=dev)
+    hi_out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return lo_out, hi_out
+    _build.launch(
+        "psi_occ_lf_pair", _OCC_LF_PAIR_ARGTYPES,
+        occ.data_ptr(), occ.shape[1], C.data_ptr(), c.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), lo_out.data_ptr(), hi_out.data_ptr(),
+        m, _build.stream_ptr(dev),
+    )
+    lf_pair.launches += 1
+    return lo_out, hi_out
+
+
+lf_pair.launches = 0
+
+
 def backward_search_pallas(occ_padded: torch.Tensor, C: torch.Tensor, n: int,
                            codes: torch.Tensor
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full k-step backward search over int32 code rows [N, k] (fed
-    column 0 first) from the whole text [0, n), one occ-row gather of lo
-    and hi per step: (lo, hi) int32 [N]. Empty ranges keep stepping (they
+    column 0 first) from the whole text [0, n), one `lf_pair` launch per
+    step: (lo, hi) int32 [N]. Empty ranges keep stepping (they
     stay empty; compare hi - lo, and lo only where hi > lo)."""
     check_codes(codes)
     N = codes.shape[0]
     dev = codes.device
     lo = torch.zeros(N, dtype=torch.int32, device=dev)
     hi = torch.full((N,), int(n), dtype=torch.int32, device=dev)
-    for c in codes.t():
+    for c in codes.t().contiguous():
         lo, hi = lf_pair(occ_padded, C, c, lo, hi)
     return lo, hi
 

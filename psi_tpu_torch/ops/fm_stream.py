@@ -11,7 +11,13 @@ are the same arrays, element for element:
                                  4..7, NW = NBpad / 128
 
 payloadW is always built: the TPU's VMEM residency budget that made it
-optional there does not apply to global memory.
+optional there does not apply to global memory. The port adds one layout
+of its own, built from payloadW on the device:
+
+    payloadR [NBpad, 8] int32    the rank record of each block: row b is
+                                 (occ_1..occ_4, match_1..match_4) of block
+                                 b, payloadW regrouped by block; 32 bytes,
+                                 one L2 sector
 
 Kernels, each behind a wrapper that runs its plain PyTorch version for
 CPU tensors, launches the kernel for CUDA tensors (raising on any other
@@ -21,10 +27,12 @@ device) and counts those launches in `.launches`:
   rank4_stream       csrc/rank4.cu       ranks of A/C/G/T at one array
   compact_children   csrc/compact.cu     child ranges from parent ranks
   rank_stream        csrc/rank.cu        rank(c_i, pos_i) per query
+  rank_lf_pair       csrc/rank.cu        one LF step of lo and hi per key
 
 The first three are the passes of the two-pass level route
-(ops/fm_trie.py); rank_stream carries `backward_search_sorted`, the
-count query over sorted k-mer code rows.
+(ops/fm_trie.py); rank_lf_pair carries `backward_search_sorted`, the
+count query over sorted k-mer code rows, one launch per step. The last
+two read payloadR.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ _U32 = 0xFFFFFFFF
 class StreamArrays(NamedTuple):
     payloadT: torch.Tensor  # int32 [16, NBpad]
     payloadW: torch.Tensor  # int32 [NW, 8, 128]
+    payloadR: torch.Tensor  # int32 [NBpad, 8]
     C: torch.Tensor         # int32 [SIGMA+1]
     n: int                  # text length
     nblocks: int            # real blocks incl. the position-n spare
@@ -96,12 +105,24 @@ def match_format(payloadT: np.ndarray) -> np.ndarray:
     )
 
 
+def rank_records(payloadW: torch.Tensor) -> torch.Tensor:
+    """payloadR [NBpad, 8] from payloadW [NW, 8, 128], on its device: the
+    eight words of each block side by side."""
+    return payloadW.permute(0, 2, 1).reshape(-1, 8).contiguous()
+
+
 def stream_arrays_from_host(payloadT: np.ndarray, C: np.ndarray, n: int,
                             device: torch.device) -> StreamArrays:
+    """The three payload layouts on `device`. payloadR is built even where
+    only payloadW is read (the trie route): 32 bytes a block, 10 MB at
+    10 Mbp, one permute at set-up, kept so that StreamArrays stays one
+    immutable record for every route."""
     payloadT = np.ascontiguousarray(payloadT, dtype=np.int32)
+    payloadW = torch.from_numpy(match_format(payloadT)).to(device)
     return StreamArrays(
         payloadT=torch.from_numpy(payloadT).to(device),
-        payloadW=torch.from_numpy(match_format(payloadT)).to(device),
+        payloadW=payloadW,
+        payloadR=rank_records(payloadW),
         C=torch.from_numpy(np.asarray(C).astype(np.int32)).to(device),
         n=int(n),
         nblocks=int(n) // SBLOCK + 1,
@@ -286,23 +307,39 @@ def rank4_stream(arrays: StreamArrays, pos: torch.Tensor) -> torch.Tensor:
 rank4_stream.launches = 0
 
 
-# --- rank: rank(c_i, pos_i) per query -----------------------------------
+# --- rank: rank(c_i, pos_i) per query, and one LF step of lo and hi ------
 
-_RANK_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_void_p]
+_RANK_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_RANK_LF_PAIR_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
 def rank_plain(payloadT: torch.Tensor, chars: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of csrc/rank.cu: int32 [M] ranks of chars
-    c_i at positions pos_i."""
+    """Plain PyTorch version of csrc/rank.cu's psi_rank: int32 [M] ranks
+    of chars c_i at positions pos_i, from payloadT."""
     blk = (pos >> 5).long()
     c = chars.long()
     pw = [payloadT[6 + p, blk].long() & _U32 for p in range(3)]
     match = _match_word(pw, c)
     return payloadT[c, blk] + popcount32(match & below_mask(pos)).to(
         torch.int32)
+
+
+def _check_records(name: str, arrays: StreamArrays, dev: torch.device,
+                   **tensors) -> None:
+    """The checks of the payloadR kernels' wrappers: int32 [M] inputs of
+    one shape, and a 32-byte aligned [NBpad, 8] record table."""
+    _build.check_int32(name, dev, payloadR=arrays.payloadR, **tensors)
+    shapes = {t.shape for t in tensors.values()}
+    if len(shapes) != 1 or len(next(iter(shapes))) != 1:
+        raise ValueError(f"{name}: {', '.join(tensors)} must be [M] each")
+    if arrays.payloadR.dim() != 2 or arrays.payloadR.shape[1] != 8:
+        raise ValueError(f"{name}: payloadR must be [NBpad, 8]")
+    if arrays.payloadR.data_ptr() % 32:
+        raise ValueError(f"{name}: payloadR is not 32-byte aligned")
 
 
 def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
@@ -315,23 +352,61 @@ def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
         return rank_plain(arrays.payloadT, chars, pos)
     if dev.type != "cuda":
         raise ValueError(f"rank_stream: unsupported device {dev}")
-    _build.check_int32("rank_stream", dev, payloadT=arrays.payloadT,
-                       chars=chars, pos=pos)
-    if pos.dim() != 1 or chars.shape != pos.shape:
-        raise ValueError("rank_stream: chars and pos must be [M]")
+    _check_records("rank_stream", arrays, dev, chars=chars, pos=pos)
     m = pos.shape[0]
     out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
     _build.launch(
         "psi_rank", _RANK_ARGTYPES,
-        arrays.payloadT.data_ptr(), arrays.payloadT.shape[1],
-        chars.data_ptr(), pos.data_ptr(), out.data_ptr(), m,
-        _build.stream_ptr(dev),
+        arrays.payloadR.data_ptr(), chars.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), m, _build.stream_ptr(dev),
     )
     rank_stream.launches += 1
     return out
 
 
 rank_stream.launches = 0
+
+
+def rank_lf_pair_plain(arrays: StreamArrays, chars: torch.Tensor,
+                       lo: torch.Tensor, hi: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of csrc/rank.cu's psi_rank_lf_pair."""
+    base = arrays.C[chars.long()]
+    return (base + rank_plain(arrays.payloadT, chars, lo),
+            base + rank_plain(arrays.payloadT, chars, hi))
+
+
+def rank_lf_pair(arrays: StreamArrays, chars: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One LF step of every key's range: (C[c] + rank(c, lo), C[c] +
+    rank(c, hi)) for int32 chars [M] in 1..4 and lo, hi [M] in [0, n],
+    int32 [M] each, in one launch. Neither range is checked on the
+    device."""
+    dev = lo.device
+    if dev.type == "cpu":
+        return rank_lf_pair_plain(arrays, chars, lo, hi)
+    if dev.type != "cuda":
+        raise ValueError(f"rank_lf_pair: unsupported device {dev}")
+    _check_records("rank_lf_pair", arrays, dev, chars=chars, lo=lo, hi=hi)
+    _build.check_int32("rank_lf_pair", dev, C=arrays.C)
+    m = lo.shape[0]
+    lo_out = torch.empty(m, dtype=torch.int32, device=dev)
+    hi_out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return lo_out, hi_out
+    _build.launch(
+        "psi_rank_lf_pair", _RANK_LF_PAIR_ARGTYPES,
+        arrays.payloadR.data_ptr(), arrays.C.data_ptr(), chars.data_ptr(),
+        lo.data_ptr(), hi.data_ptr(), lo_out.data_ptr(), hi_out.data_ptr(),
+        m, _build.stream_ptr(dev),
+    )
+    rank_lf_pair.launches += 1
+    return lo_out, hi_out
+
+
+rank_lf_pair.launches = 0
 
 
 def backward_search_sorted(
@@ -343,14 +418,16 @@ def backward_search_sorted(
     """SA ranges (lo, hi), int32 [N] each, of k-mers given as int32
     code rows [N, k] (ACGT codes 1..4), fed column 0 first as psi_tpu's
     backward_search_sorted feeds them; lo0/hi0 optionally seed the
-    search (ftab ranges). Each column is one LF step, two rank_stream
-    launches: lo' = C[c] + rank(c, lo), and the same for hi. Empty
-    ranges keep stepping, so lo == hi there at a route-specific value.
+    search (ftab ranges). Each column is one LF step, one rank_lf_pair
+    launch: lo' = C[c] + rank(c, lo), and the same for hi. Empty ranges
+    keep stepping, so lo == hi there at a route-specific value.
 
     psi_tpu wants the rows sorted and pads them to whole tiles; its
-    kernel walks payload windows. Here rows may come in any order and
-    are not padded: after the first step the positions are scattered
-    whatever the row order, and each rank is its own gather."""
+    kernel walks payload windows and ranks lo and hi in two passes. Here
+    rows may come in any order and are not padded: after the first step
+    the positions are scattered whatever the row order, and each key's
+    step is its own gather of one rank record (two where lo and hi lie in
+    different blocks)."""
     dev = codes.device
     n_rows = codes.shape[0]
     if lo0 is None:
@@ -358,9 +435,7 @@ def backward_search_sorted(
     if hi0 is None:
         hi0 = torch.full((n_rows,), arrays.n, dtype=torch.int32, device=dev)
     cols = codes.t().contiguous()                 # [k, N], one row a step
-    base = arrays.C[cols.long()]                  # C[c] of every step
     lo, hi = lo0, hi0
     for j in range(cols.shape[0]):
-        lo = base[j] + rank_stream(arrays, cols[j], lo)
-        hi = base[j] + rank_stream(arrays, cols[j], hi)
+        lo, hi = rank_lf_pair(arrays, cols[j], lo, hi)
     return lo, hi

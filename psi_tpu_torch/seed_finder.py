@@ -510,8 +510,8 @@ class SeedFinder:
 
         psi_tpu picks the layout by platform: dense on its CPU backend,
         bit-planes on the TPU, where XLA serializes gathers from a big
-        table. On the H100 a dense row gather is one 16-byte load from
-        HBM (csrc/occ_gather.cu), and a 10 Mbp table is 160 MB of 80 GB,
+        table. On the H100 a dense rank is one 4-byte load from HBM
+        (csrc/occ_gather.cu), and a 10 Mbp table is 160 MB of 80 GB,
         so both devices take the dense layout within DENSE_OCC_BUDGET and
         the bit planes beyond it."""
         fm = self.pindex.fm

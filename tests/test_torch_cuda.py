@@ -120,13 +120,14 @@ def test_rank_kernels_match_plain(index, dev):
     shifts = 2 * np.arange(K - 1, -1, -1, dtype=np.uint64)
     codes = ((keys[:, None] >> shifts) & np.uint64(3)).astype(np.int32) + 1
     rows = ftab[(keys >> np.uint64(2 * (K - p))).astype(np.int64)]
-    n0 = fm_stream.rank_stream.launches
+    n0 = fm_stream.rank_lf_pair.launches, fm_stream.rank_stream.launches
     blo, bhi = fm_stream.backward_search_sorted(
         arr, torch.from_numpy(np.ascontiguousarray(codes[:, p:])).to(dev),
         torch.from_numpy(np.ascontiguousarray(rows[:, 0])).to(dev),
         torch.from_numpy(np.ascontiguousarray(rows[:, 1])).to(dev))
     torch.cuda.synchronize()
-    assert fm_stream.rank_stream.launches == n0 + 2 * (K - p)
+    assert (fm_stream.rank_lf_pair.launches,
+            fm_stream.rank_stream.launches) == (n0[0] + K - p, n0[1])
     tlo, thi = fm_trie.trie_search(arr, keys, K, ftab=ftab)
     np.testing.assert_array_equal((bhi - blo).cpu().numpy(), thi - tlo)
 
@@ -157,6 +158,76 @@ def test_wrappers_reject_bad_cuda_inputs(index, dev):
         fm_stream.rank4_pair_stream(arr, pos, pos.cpu())
 
 
+def _edge_pairs(n, rng, dev, m=5000):
+    """(chars, lo, hi) int32 on `dev` at the LF-step kernels' edges:
+    chars 1..4 each; lo == hi; hi - lo across a 32-position block, across
+    a 2-row (W=4) sector and inside both; positions 0 and n."""
+    lo = rng.randint(0, n + 1, size=m)
+    hi = np.minimum(lo + rng.choice([0, 1, 2, 7, 31, 32, 33, 500], size=m), n)
+    lo[:4], hi[:4] = (0, 0, n, 0), (0, n, n, 1)
+    blk = 32 * rng.randint(1, n // 32, size=300)
+    lo[4:304], hi[4:304] = blk - 1, blk                # across a block
+    odd = 2 * rng.randint(1, n // 2, size=300) - 1
+    lo[304:604], hi[304:604] = odd, odd + 1            # across a sector
+    chars = np.arange(m) % 4 + 1
+    return [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (chars, lo, hi)]
+
+
+def test_rank_lf_pair_kernel_matches_plain(index, dev):
+    """rank_lf_pair and the per-query rank, both over payloadR, against
+    their plain versions at the edges, one launch each; a misaligned
+    record table is refused."""
+    fm, _, _ = index
+    arr = fm_stream.build_stream_arrays(fm, dev)
+    chars, lo, hi = _edge_pairs(fm.size, np.random.RandomState(2), dev)
+    n0 = fm_stream.rank_lf_pair.launches, fm_stream.rank_stream.launches
+    got = fm_stream.rank_lf_pair(arr, chars, lo, hi)
+    ranks = [fm_stream.rank_stream(arr, chars, pos) for pos in (lo, hi)]
+    torch.cuda.synchronize()
+    assert (fm_stream.rank_lf_pair.launches,
+            fm_stream.rank_stream.launches) == (n0[0] + 1, n0[1] + 2)
+    want = fm_stream.rank_lf_pair_plain(arr, chars, lo, hi)
+    base = arr.C[chars.long()]
+    for g, w, r, pos in zip(got, want, ranks, (lo, hi)):
+        assert torch.equal(g, w)
+        assert torch.equal(r, fm_stream.rank_plain(arr.payloadT, chars, pos))
+        assert torch.equal(g, base + r)
+    for i in range(4):
+        c = int(chars[i])
+        assert int(got[1][i]) == fm.C[c] + fm.rank(c, int(hi[i]))
+    off = arr._replace(payloadR=arr.payloadR.reshape(-1)[1:-7].reshape(-1, 8))
+    with pytest.raises(ValueError, match="aligned"):
+        fm_stream.rank_lf_pair(off, chars, lo, hi)
+    with pytest.raises(ValueError, match=r"must be \[M\]"):
+        fm_stream.rank_lf_pair(arr, chars, lo, hi[:-1])
+
+
+@pytest.mark.parametrize("width", [4, 8])
+def test_occ_lf_pair_kernel_matches_plain(index, dev, width):
+    """lf_pair on the dense and the padded table against lf_pair_plain at
+    the edges and on an empty batch."""
+    fm, _, _ = index
+    occ8 = torch.from_numpy(fm_pallas.occ_dense_padded(fm)).to(dev)
+    occ = occ8 if width == 8 else occ8[:, :4].contiguous()
+    C = torch.from_numpy(fm.C.astype(np.int32)).to(dev)
+    chars, lo, hi = _edge_pairs(fm.size, np.random.RandomState(width), dev)
+    for m in (0, 1, 257, len(lo)):
+        n0 = fm_pallas.lf_pair.launches
+        got = fm_pallas.lf_pair(occ, C, chars[:m], lo[:m], hi[:m])
+        torch.cuda.synchronize()
+        assert fm_pallas.lf_pair.launches == n0 + (m > 0)
+        want = fm_pallas.lf_pair_plain(occ, C, chars[:m], lo[:m], hi[:m])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for i in range(4):
+        c = int(chars[i])
+        assert int(got[1][i]) == fm.C[c] + fm.rank(c, int(hi[i]))
+    with pytest.raises(ValueError, match="W in"):
+        fm_pallas.lf_pair(occ8[:, :6].contiguous(), C, chars, lo, hi)
+    with pytest.raises(ValueError, match="int32"):
+        fm_pallas.lf_pair(occ, C, chars, lo.long(), hi)
+
+
 @pytest.mark.parametrize("order", ["scattered", "sorted"])
 @pytest.mark.parametrize("width", [4, 8])
 def test_occ_gather_kernel_matches_plain(index, dev, width, order):
@@ -180,9 +251,10 @@ def test_occ_gather_kernel_matches_plain(index, dev, width, order):
     arrays = fm_ops.to_device(fm, dev, dense_occ=True)
     assert torch.equal(arrays.occ_dense, occ8[:, :4])
     codes = torch.from_numpy(fm_ops.keys_to_codes(keys, K)).to(dev)
-    n0 = fm_pallas.gather_occ_rows.launches
+    n0 = fm_pallas.lf_pair.launches, fm_pallas.gather_occ_rows.launches
     lo, hi = fm_ops.backward_search_codes(arrays, codes)
-    assert fm_pallas.gather_occ_rows.launches == n0 + K
+    assert (fm_pallas.lf_pair.launches,
+            fm_pallas.gather_occ_rows.launches) == (n0[0] + K, n0[1])
     plo, phi = fm_pallas.backward_search_pallas(occ8, arrays.C, fm.size,
                                                 codes)
     assert torch.equal(lo, plo) and torch.equal(hi, phi)
@@ -215,7 +287,7 @@ def test_occ_gather_rejects_bad_inputs(index, dev):
 def test_gather_route_and_mems_cuda_match_cpu(dev, monkeypatch):
     """The gather route (PSI_STREAM=0, device and host locate) and the
     MEM API on the card give the CPU's hits, and the route launched the
-    occ-row gather once per LF step."""
+    LF-step kernel once per LF step."""
     graph = make_pangenome_graph(30_000, 0.02, seed=8)
     itr = HaplotyperRandomIter(graph, seed=12)
     hap = Path(graph)
@@ -237,9 +309,9 @@ def test_gather_route_and_mems_cuda_match_cpu(dev, monkeypatch):
         rows = []
         for locate in ("1", "0"):
             monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
-            n0 = fm_pallas.gather_occ_rows.launches
+            n0 = fm_pallas.lf_pair.launches
             arr = finder.seeds_on_paths_arrays(seeds, index)
-            launched = fm_pallas.gather_occ_rows.launches - n0
+            launched = fm_pallas.lf_pair.launches - n0
             rows.append(np.sort(arr, order=list(arr.dtype.names)))
         mems = finder.find_mems_arrays(recs)
         out[device] = (rows, np.sort(mems, order=list(mems.dtype.names)),

@@ -1,8 +1,9 @@
 """psi_tpu_torch.ops.fm_pallas against psi_tpu.ops.fm_pallas: the Pallas
 occ-row gathers run in interpret mode, as tests/test_pallas.py runs them,
 against the port's gather (its plain version on the CPU) on the padded
-[n+1, 8] table, and the port's gather on the dense [n+1, 4] layout.
-Integer results: equality is exact."""
+[n+1, 8] table, and the port's gather on the dense [n+1, 4] layout; and
+the LF step (`lf_pair`, its plain version on the CPU) against one step of
+psi_tpu's Pallas backward search. Integer results: equality is exact."""
 
 import numpy as np
 import pytest
@@ -87,3 +88,42 @@ def test_backward_search_pallas_matches_psi_tpu(fm, occ8):
         fm_pallas.backward_search_pallas(
             torch.from_numpy(occ8), torch.from_numpy(C), fm.size,
             torch.zeros((2, 3), dtype=torch.int32))
+
+
+@pytest.fixture(scope="module")
+def pallas_steps(fm, occ8):
+    """psi_tpu's Pallas backward search (interpret mode) of the first j
+    columns of one code matrix, for j = 0..K: the ranges after each
+    step."""
+    codes = np.random.RandomState(8).randint(1, 5, (40, 6)).astype(np.int32)
+    C = fm.C.astype(np.int32)
+    steps = [(np.zeros(len(codes), np.int32),
+              np.full(len(codes), fm.size, np.int32))]
+    for j in range(1, codes.shape[1] + 1):
+        jlo, jhi = jfp.backward_search_pallas(
+            jnp.asarray(occ8), jnp.asarray(C), jnp.asarray(fm.size, jnp.int32),
+            jnp.asarray(codes[:, :j]), interpret=True)
+        steps.append((np.array(jlo), np.array(jhi)))
+    return codes, C, steps
+
+
+@pytest.mark.parametrize("width", [8, 4])
+def test_lf_pair_matches_pallas_step(occ8, pallas_steps, width):
+    """lf_pair_plain from psi_tpu's ranges after j steps gives psi_tpu's
+    ranges after j + 1, on psi_tpu's padded W=8 table and on the port's
+    W=4 layout; the wrapper takes the plain version on the CPU."""
+    codes, C, steps = pallas_steps
+    occ = torch.from_numpy(np.ascontiguousarray(occ8[:, :width]))
+    Ct = torch.from_numpy(C)
+    n0 = fm_pallas.lf_pair.launches
+    for j in range(codes.shape[1]):
+        c = torch.from_numpy(np.ascontiguousarray(codes[:, j]))
+        lo, hi = (torch.from_numpy(a) for a in steps[j])
+        want = steps[j + 1]
+        for got in (fm_pallas.lf_pair_plain(occ, Ct, c, lo, hi),
+                    fm_pallas.lf_pair(occ, Ct, c, lo, hi)):
+            assert got[0].dtype == got[1].dtype == torch.int32
+            np.testing.assert_array_equal(got[0].numpy(), want[0])
+            np.testing.assert_array_equal(got[1].numpy(), want[1])
+    assert fm_pallas.lf_pair.launches == n0           # CPU: plain version
+    assert (steps[-1][1] > steps[-1][0]).any()

@@ -1,7 +1,9 @@
 """psi_tpu_torch.ops.fm_stream against psi_tpu.ops.fm_stream: the payload
-layouts; the plain versions of the rank4_pair, rank4, compact and rank
-kernels against the Pallas kernels (interpret mode, every variant); and
-backward_search_sorted against psi_tpu's, with and without ftab seeds.
+layouts and the port's own rank records (payloadR); the plain versions of
+the rank4_pair, rank4, compact, rank and rank_lf_pair kernels against the
+Pallas kernels (interpret mode, every variant); and backward_search_sorted
+against psi_tpu's, with and without ftab seeds and at the edges of its
+ranges.
 Inputs are identical, given through psi_tpu_torch.convert. Everything is
 int32: equality is exact, and for SA ranges (R3) `hi - lo` everywhere and
 `lo` where the range is not empty."""
@@ -61,6 +63,84 @@ def test_payloads_match_psi_tpu(seed):
                                       np.asarray(ref.payloadW))
         np.testing.assert_array_equal(arr.C.numpy(), np.asarray(ref.C))
         assert (arr.n, arr.nblocks) == (ref.n, ref.nblocks)
+
+
+def _records_numpy(payloadT: np.ndarray) -> np.ndarray:
+    """payloadR built in numpy from payloadT alone: per block, the occ
+    rows of ACGT and the AND over the three bit planes (or their
+    complements, by the bits of c) of its 32 positions."""
+    planes = payloadT[6:9].view(np.uint32)
+    rec = np.empty((payloadT.shape[1], 8), dtype=np.int32)
+    rec[:, 0:4] = payloadT[1:5].T
+    for c in range(1, 5):
+        match = np.full(payloadT.shape[1], 0xFFFFFFFF, dtype=np.uint32)
+        for p in range(3):
+            match &= planes[p] if (c >> p) & 1 else ~planes[p]
+        rec[:, 3 + c] = match.view(np.int32)
+    return rec
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_payload_records(seed):
+    """payloadR is payloadW regrouped by block, equals a numpy build from
+    payloadT, holds the BWT's match bits, and convert carries it."""
+    fm = _fm(seed)
+    got = fm_stream.build_stream_arrays(fm, CPU)
+    conv = convert.stream_arrays(jfs.build_stream_arrays(fm), CPU)
+    want = _records_numpy(got.payloadT.numpy())
+    nbpad = got.payloadT.shape[1]
+    w = got.payloadW.numpy()
+    for arr in (got, conv):
+        rec = arr.payloadR.numpy()
+        assert rec.shape == (nbpad, 8) and arr.payloadR.is_contiguous()
+        np.testing.assert_array_equal(rec, want)
+        np.testing.assert_array_equal(rec, w.transpose(0, 2, 1).reshape(-1, 8))
+    bwt = np.full(nbpad * 32, 255, dtype=np.int64)
+    bwt[: fm.size] = fm.bwt
+    bits = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    for c in range(1, 5):
+        words = ((bwt.reshape(nbpad, 32) == c) * bits).sum(axis=1)
+        np.testing.assert_array_equal(want[:, 3 + c].view(np.uint32), words)
+    blocks = np.arange(got.nblocks)
+    for c in range(1, 5):
+        np.testing.assert_array_equal(
+            want[blocks, c - 1], [fm.rank(c, 32 * b) for b in blocks])
+
+
+def _edge_pairs(n, rng, m=4000):
+    """lo <= hi pairs at the kernels' edges: empty ranges, ranges inside
+    one 32-position block, ranges that straddle one or many blocks, and
+    both ends of the text; chars 1..4 each."""
+    lo = rng.randint(0, n + 1, size=m)
+    width = rng.choice([0, 1, 3, 31, 32, 33, 200], size=m)
+    hi = np.minimum(lo + width, n)
+    lo[:4], hi[:4] = (0, 0, n, 0), (0, n, n, 1)
+    straddle = 32 * rng.randint(1, n // 32, size=200)
+    lo[4:204], hi[4:204] = straddle - 1, straddle + 1
+    chars = np.arange(m) % 4 + 1
+    return [torch.from_numpy(a.astype(np.int32)) for a in (chars, lo, hi)]
+
+
+def test_rank_lf_pair_plain_matches_rank(fm):
+    """rank_lf_pair (its plain version on the CPU) is C[c] + rank_plain at
+    lo and at hi, and the host FM index's rank."""
+    arr = fm_stream.build_stream_arrays(fm, CPU)
+    chars, lo, hi = _edge_pairs(fm.size, np.random.RandomState(4))
+    n0 = fm_stream.rank_lf_pair.launches
+    got = fm_stream.rank_lf_pair(arr, chars, lo, hi)
+    assert fm_stream.rank_lf_pair.launches == n0        # CPU: plain version
+    plain = fm_stream.rank_lf_pair_plain(arr, chars, lo, hi)
+    base = arr.C[chars.long()]
+    for g, p, pos in zip(got, plain, (lo, hi)):
+        assert g.dtype == torch.int32
+        assert torch.equal(g, p)
+        assert torch.equal(g, base + fm_stream.rank_plain(arr.payloadT, chars,
+                                                          pos))
+    for i in list(range(8)) + list(np.random.RandomState(5).choice(
+            len(lo), 40, replace=False)):
+        c = int(chars[i])
+        assert got[0][i] == fm.C[c] + fm.rank(c, int(lo[i]))
+        assert got[1][i] == fm.C[c] + fm.rank(c, int(hi[i]))
 
 
 @pytest.fixture(scope="module")
@@ -224,13 +304,14 @@ def test_backward_search_sorted_matches_pallas(fm, small_slabs, ftab_p):
         ref, jnp.asarray(codes[:, ftab_p:]),
         None if lo0 is None else jnp.asarray(lo0),
         None if hi0 is None else jnp.asarray(hi0), interpret=True)
-    n0 = fm_stream.rank_stream.launches
+    n0 = fm_stream.rank_lf_pair.launches, fm_stream.rank_stream.launches
     lo, hi = fm_stream.backward_search_sorted(
         convert.stream_arrays(ref, CPU),
         torch.from_numpy(np.ascontiguousarray(codes[:, ftab_p:])),
         None if lo0 is None else torch.from_numpy(lo0),
         None if hi0 is None else torch.from_numpy(hi0))
-    assert fm_stream.rank_stream.launches == n0         # CPU: plain version
+    assert (fm_stream.rank_lf_pair.launches,           # CPU: plain version
+            fm_stream.rank_stream.launches) == n0
     jlo, jhi = np.asarray(jlo), np.asarray(jhi)
     np.testing.assert_array_equal((hi - lo).numpy(), jhi - jlo)
     found = jhi > jlo
@@ -241,3 +322,46 @@ def test_backward_search_sorted_matches_pallas(fm, small_slabs, ftab_p):
         s = "".join("ACGT"[c - 1] for c in codes[i])
         want_lo, want_hi = fm.backward_search(s[::-1])
         assert int(hi[i] - lo[i]) == want_hi - want_lo
+
+
+@pytest.mark.parametrize("edge", ["empty", "at_n", "straddle"])
+def test_backward_search_sorted_edges_match_pallas(fm, small_slabs, edge):
+    """backward_search_sorted from seeds at the edges of the rank step:
+    empty ranges (lo == hi), ranges ending at n (the spare block), and
+    ranges whose lo and hi lie in different 32-position blocks, against
+    psi_tpu's (interpret mode), compared per R3."""
+    k = 3
+    rng = np.random.RandomState(21)
+    n = fm.size
+    m = 1500
+    lo0 = rng.randint(0, n, size=m)
+    if edge == "empty":
+        hi0 = lo0.copy()
+        hi0[::2] += 1               # one wide, then empty, in turns
+    elif edge == "at_n":
+        hi0 = np.full(m, n)
+        lo0[: m // 2] = n - rng.randint(0, 64, size=m // 2)
+    else:
+        blk = rng.randint(1, n // 32, size=m)
+        lo0 = 32 * blk - rng.randint(1, 4, size=m)
+        hi0 = 32 * blk + rng.randint(0, 200, size=m)
+    order = np.lexsort((hi0, lo0))
+    lo0, hi0 = (np.ascontiguousarray(a[order].astype(np.int32))
+                for a in (lo0, hi0))
+    codes = rng.randint(1, 5, size=(m, k)).astype(np.int32)
+    ref = small_slabs.build_stream_arrays(fm)
+    jlo, jhi = small_slabs.backward_search_sorted(
+        ref, jnp.asarray(codes), jnp.asarray(lo0), jnp.asarray(hi0),
+        interpret=True)
+    lo, hi = fm_stream.backward_search_sorted(
+        convert.stream_arrays(ref, CPU), torch.from_numpy(codes),
+        torch.from_numpy(lo0), torch.from_numpy(hi0))
+    jlo, jhi = np.asarray(jlo), np.asarray(jhi)
+    np.testing.assert_array_equal((hi - lo).numpy(), jhi - jlo)
+    found = jhi > jlo
+    np.testing.assert_array_equal(lo.numpy()[found], jlo[found])
+    if edge == "empty":
+        empty = hi0 == lo0
+        assert empty.sum() > 500 and (jhi[empty] == jlo[empty]).all()
+    else:
+        assert found.sum() > 50

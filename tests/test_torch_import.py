@@ -199,7 +199,8 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     w = torch.zeros((1, 8, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fm_fused.trie_level(w, t, t, t, t, t, t, t)
-    arrays = fm_stream.StreamArrays(t.reshape(16, -1), w, t, 0, 1)
+    arrays = fm_stream.StreamArrays(t.reshape(16, -1), w, t.reshape(-1, 8),
+                                    t, 0, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         fm_stream.rank4_pair_stream(arrays, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -210,4 +211,8 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     with pytest.raises(ValueError, match="unsupported device"):
         fm_stream.rank_stream(arrays, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
+        fm_stream.rank_lf_pair(arrays, t, t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
         fm_pallas.gather_occ_rows(t.reshape(-1, 8), t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fm_pallas.lf_pair(t.reshape(-1, 8), t, t, t, t)
