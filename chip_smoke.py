@@ -20,8 +20,10 @@ exits non-zero and prints no result):
     2 paths and the first chunk's 2^19-slot frontier, every level),
     bit-equal over all slots, with CUDA-event device times (a spin kernel
     queued first), the enqueued time and the plain time, and each
-    kernel's bound from the bytes this run's inputs need; rank at the
-    trie step's positions too; expand + locate time;
+    kernel's bound from the bytes this run's inputs need; the distinct
+    payloadC sectors (and, for comparison, payloadR records) per child
+    of trie_level and payloadR records per position of rank4; rank at
+    the trie step's positions too; expand + locate time;
  5. [routes] on chunk 1's distinct keys, each level route through
     `trie_search` (fused; two-pass with rank4_pair; two-pass with two
     rank4 launches) and `backward_search_sorted` from the ftab frontier,
@@ -35,7 +37,9 @@ exits non-zero and prints no result):
     no route runs any more, replayed through `rank_stream` on the same
     steps' lo and hi arrays (two launches a step, which check the
     wrapper and count on no path), against its plain version, with its
-    times;
+    times; and rank4 on the same arrays, the scattered positions of a
+    backward search, against its plain version, with its times and
+    records per position;
  6. [gather] the FM gather route on chunk 1's distinct keys: the ranges
     of `backward_search_codes` on the dense (LF-step kernel, one launch
     per step and nothing else), bit-plane and checkpointed layouts equal
@@ -355,9 +359,10 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 # Compulsory traffic of one launch at this run's inputs, as (bytes,
 # integer operations): each input array read once and each output
-# written once. The 20 MB payload (payloadW or payloadT) is not counted:
-# every launch of a route, and every timed launch below, reads the same
-# payload, which stays in the 50 MB L2 from one launch to the next. The
+# written once. The payload (payloadT, 20 MB at 10 Mbp, or payloadR or
+# payloadC, 10 MB each) is not counted: every launch of a route, and every
+# timed launch below, reads the same payload, which stays in the 50 MB L2
+# from one launch to the next. The
 # rank tables that compact reads are counted, as the 4-byte words this
 # run's (char, parent) pairs land on: they are an output of the launch
 # before, and the timed loop cycles through every level's tables (9 x 16
@@ -398,6 +403,27 @@ def rank_lf_pair_work(c, lo, hi):
     """Chars, lo and hi read, lo' and hi' written; the rank records, like
     rows 1-9's payload, stay in L2 and are not counted."""
     return nbytes(c, lo, hi) + nbytes(lo, hi), 16 * lo.numel()
+
+
+def records_per_item(*positions) -> float:
+    """Distinct payloadR records (one 32-byte sector each) that one
+    launch's positions land on, over the launch's items (the length of
+    each positions array)."""
+    import torch
+
+    blocks = torch.cat([p.reshape(-1) for p in positions]) >> 5
+    return n_unique(blocks) / positions[0].numel()
+
+
+def char_sectors_per_child(nbpad, chars, lo, hi) -> float:
+    """Distinct 32-byte sectors of payloadC (four blocks of one char
+    each) that the (char, lo block) and (char, hi block) words of one
+    launch's children land on, over its children."""
+    import torch
+
+    words = torch.cat([(chars.long() - 1) * nbpad + (p.long() >> 5)
+                       for p in (lo, hi)])
+    return n_unique(words >> 2) / chars.numel()
 
 
 def occ_sectors(occ, c, lo, hi) -> int:
@@ -536,8 +562,9 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     uniq, _, prep = index._onpath_prep
     levels, npad = prep.parents.shape
     par, chs = prep.parents, prep.chars
-    phase("kernels", f"index {sarr.n} chars; payloadW "
-          f"{tuple(sarr.payloadW.shape)}, payloadT "
+    phase("kernels", f"index {sarr.n} chars; payloadC "
+          f"{tuple(sarr.payloadC.shape)}, payloadR "
+          f"{tuple(sarr.payloadR.shape)}, payloadT "
           f"{tuple(sarr.payloadT.shape)}; {len(uniq)} distinct keys in a "
           f"{npad}-slot frontier, {levels} levels")
 
@@ -548,9 +575,9 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     for j in range(levels):
         lo, hi = fronts[-1]
         out = (torch.empty_like(lo), torch.empty_like(hi))
-        fm_fused.trie_level(sarr.payloadW, sarr.C, par[j], chs[j], lo, hi,
+        fm_fused.trie_level(sarr.payloadC, sarr.C, par[j], chs[j], lo, hi,
                             *out)
-        want = fm_fused.trie_level_plain(sarr.payloadW, sarr.C, par[j],
+        want = fm_fused.trie_level_plain(sarr.payloadC, sarr.C, par[j],
                                          chs[j], lo, hi)
         err["trie_level"] = max(err["trie_level"], max_abs_err(out[0], want[0]),
                                 max_abs_err(out[1], want[1]))
@@ -569,7 +596,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
             got = fm_stream.rank4_stream(sarr, pos)
             err["rank4"] = max(err["rank4"], max_abs_err(got, w),
                                max_abs_err(got, fm_stream.rank4_plain(
-                                   sarr.payloadT, pos)))
+                                   sarr.payloadR, pos)))
         got = fm_stream.compact_children(r4[0], r4[1], par[j], chs[j], sarr.C)
         want = fm_stream.compact_plain(r4[0], r4[1], par[j], chs[j], sarr.C)
         err["compact"] = max(err["compact"], max_abs_err(got[0], want[0]),
@@ -599,7 +626,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
         "trie_level": (
             lambda: fm_fused.trie_fused(sarr, par, chs, prep.lo0, prep.hi0),
             each_level(lambda j: fm_fused.trie_level_plain(
-                sarr.payloadW, sarr.C, par[j], chs[j], *fronts[j])),
+                sarr.payloadC, sarr.C, par[j], chs[j], *fronts[j])),
             levels,
             [trie_level_work(par[j], chs[j], *fronts[j])
              for j in range(levels)]),
@@ -613,7 +640,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
         "rank4": (
             each_level(lambda j: [fm_stream.rank4_stream(sarr, p)
                                   for p in fronts[j]]),
-            each_level(lambda j: [fm_stream.rank4_plain(sarr.payloadT, p)
+            each_level(lambda j: [fm_stream.rank4_plain(sarr.payloadR, p)
                                   for p in fronts[j]]),
             2 * levels,
             [rank4_work(p) for j in range(levels) for p in fronts[j]]),
@@ -638,6 +665,33 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     records = {name: measure(name, *run, err[name.split(" ")[0]], shape)
                for name, run in runs.items()}
 
+    # the rank words each launch reads: for trie_level, distinct payloadC
+    # sectors per child (siblings of one char, neighbouring parents and lo
+    # and hi of a narrow range share one) and the words one child loads
+    # (lo's, and hi's where its block differs), beside the distinct
+    # payloadR records the same children would need; for rank4, distinct
+    # payloadR records per position; averaged over the launches
+    ends = [(chs[j], lo[par[j].long()], hi[par[j].long()])
+            for j, (lo, hi) in enumerate(fronts[:-1])]
+    nbpad = sarr.payloadC.shape[1]
+    tl = records["trie_level"]
+    tl["sectors_per_child"] = sum(
+        char_sectors_per_child(nbpad, *end) for end in ends) / levels
+    tl["words_loaded_per_child"] = 1 + sum(
+        float(((lo >> 5) != (hi >> 5)).float().mean())
+        for _, lo, hi in ends) / levels
+    tl["records_per_child"] = sum(
+        records_per_item(lo, hi) for _, lo, hi in ends) / levels
+    records["rank4"]["records_per_position"] = sum(
+        records_per_item(p) for j in range(levels)
+        for p in fronts[j]) / (2 * levels)
+    phase("kernels", f"trie_level reads {tl['sectors_per_child']:.4f} "
+          f"distinct payloadC sectors per child and level (one child loads "
+          f"{tl['words_loaded_per_child']:.4f} words; payloadR would need "
+          f"{tl['records_per_child']:.4f} records); rank4 "
+          f"{records['rank4']['records_per_position']:.4f} payloadR records "
+          f"per position")
+
     # expand + locate of the chunk's leaf ranges (torch operators)
     lo, hi = fronts[-1]
     counts = (hi - lo)[: len(uniq)]
@@ -654,13 +708,13 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     return records, extra
 
 
-def route_phase(finder, index) -> tuple[dict, dict, dict, dict]:
+def route_phase(finder, index) -> tuple[dict, dict, dict, dict, dict]:
     """The level routes and the backward search on chunk 1's keys, each
     through its entry point with the launch counters set to 0 just before
     and read just after. Returns the launch counts per kernel (from the
     route that runs it), (device, enqueued) ms per chunk per route, and
-    the records of rank_lf_pair and of the per-query rank on the backward
-    search's own inputs."""
+    the records of rank_lf_pair, of the per-query rank and of rank4 on
+    the backward search's own inputs."""
     import numpy as np
     import torch
 
@@ -775,6 +829,32 @@ def route_phase(finder, index) -> tuple[dict, dict, dict, dict]:
         f"{len(uniq)} keys x {len(queries)} launches (lo and hi per step) of "
         f"backward_search_sorted", plain_reps=1, tag="routes")
     rank_rec["replay_launches"] = len(queries)
+
+    # rank4 at the same scattered positions (its own path, the unpaired
+    # two-pass route, gives it a frontier's near-sorted ones)
+    positions = [pos for _, pos in queries]
+    reset_counters()
+    ranked = [fm_stream.rank4_stream(sarr, pos) for pos in positions]
+    torch.cuda.synchronize()
+    got = read_counters()
+    require(got == {**ZERO_COUNTS, "rank4": len(positions)},
+            f"rank4_stream over {len(positions)} arrays launched {got}")
+    r4_err = max(max_abs_err(r, fm_stream.rank4_plain(sarr.payloadR, pos))
+                 for r, pos in zip(ranked, positions))
+    require(r4_err == 0, f"rank4 differs from its plain version by "
+            f"{r4_err} on the backward search's positions")
+    r4_rec = measure(
+        "rank4 (backward-search positions)",
+        lambda: [fm_stream.rank4_stream(sarr, pos) for pos in positions],
+        lambda: [fm_stream.rank4_plain(sarr.payloadR, pos)
+                 for pos in positions],
+        len(positions), [rank4_work(pos) for pos in positions], r4_err,
+        f"{len(uniq)} positions x {len(positions)} launches (lo and hi per "
+        f"step) of backward_search_sorted", plain_reps=1, tag="routes")
+    r4_rec["records_per_position"] = sum(
+        records_per_item(pos) for pos in positions) / len(positions)
+    phase("routes", f"rank4 reads {r4_rec['records_per_position']:.4f} "
+          f"distinct rank records per position there")
     blo, bhi = blo.cpu().numpy(), bhi.cpu().numpy()
     tlo, thi = leaves["fused"]
     require(np.array_equal(bhi - blo, thi - tlo),
@@ -789,7 +869,7 @@ def route_phase(finder, index) -> tuple[dict, dict, dict, dict]:
     for name, (dev_ms, enq) in ms.items():
         phase("routes", f"{name}: {dev_ms:.4f} ms/chunk on the device, "
               f"{enq:.4f} enqueued")
-    return launches, ms, pair_rec, rank_rec
+    return launches, ms, pair_rec, rank_rec, r4_rec
 
 
 def _same_ranges(got, want) -> bool:
@@ -1159,8 +1239,9 @@ def main(argv=None) -> int:
               f"{time.monotonic() - t0:.1f} s")
         reads, seeds, index = first_chunk_index(finder, fastq, args.chunk)
         records, extra = kernel_phase(finder, index)
-        (launches, route_ms, records["rank_lf_pair"],
-         records["rank"]) = route_phase(finder, index)
+        (launches, route_ms, records["rank_lf_pair"], records["rank"],
+         records["rank4 (backward-search positions)"]) = route_phase(
+            finder, index)
         extra["route_ms_per_chunk"] = {
             r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
         (records["occ_gather"], records["occ_lf_pair"],
@@ -1263,6 +1344,17 @@ def main(argv=None) -> int:
                 ("ms", "enqueued_ms", "plain_ms", "bound_ms", "shape")}
         if kname == "rank_lf_pair":
             kernels[-1]["records_per_key"] = rec["records_per_key"]
+        if kname == "trie_level":
+            kernels[-1].update({k: rec[k] for k in (
+                "sectors_per_child", "words_loaded_per_child",
+                "records_per_child")})
+        if kname == "rank4":
+            kernels[-1]["records_per_position"] = rec["records_per_position"]
+            scattered = records["rank4 (backward-search positions)"]
+            kernels[-1]["scattered_positions"] = {
+                k: scattered[k] for k in
+                ("ms", "enqueued_ms", "plain_ms", "bound_ms",
+                 "records_per_position", "shape")}
         if kname in ("occ_gather", "occ_lf_pair"):
             kernels[-1]["variants"] = {
                 v: {k: r.get(k) for k in ("ms", "enqueued_ms", "plain_ms",

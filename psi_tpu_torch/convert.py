@@ -26,8 +26,10 @@ def _t(a, device: torch.device) -> torch.Tensor:
 
 
 def stream_arrays(src, device: torch.device) -> fm_stream.StreamArrays:
-    """psi_tpu StreamArrays -> StreamArrays. payloadW is derived from
-    payloadT (psi_tpu leaves it None past its VMEM budget)."""
+    """psi_tpu StreamArrays -> StreamArrays: payloadT, and the rank
+    records payloadR and per-char words payloadC built from it (psi_tpu's
+    payloadW, None there past its VMEM budget, holds the same words and
+    is not read)."""
     return fm_stream.stream_arrays_from_host(
         _np(src.payloadT), _np(src.C), src.n, device
     )

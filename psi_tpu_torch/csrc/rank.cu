@@ -10,12 +10,10 @@
 // one masked pass per window. Here each thread reads its own block's
 // record instead.
 //
-// payloadR [NBpad, 8] int32: row b is (occ_1..occ_4, match_1..match_4) of
-// text block b = pos >> 5, the occ checkpoints of ACGT before the block
-// and the per-char match-mask words of its 32 positions. A row is 32
-// bytes, one L2 sector, 32-byte aligned (the wrapper checks the base), so
-//   rank(c, pos) = rec[b][c-1] + popc(rec[b][3+c] & below(pos))
-// reads two words of one sector.
+// payloadR [NBpad, 8] int32 holds one 32-byte record (one L2 sector) per
+// text block, and rank(c, pos) reads two words of it (payload_rank.cuh
+// has the record and the arithmetic, shared with trie_level.cu and
+// rank4.cu).
 //
 // What bounds it on an H100: every step after the first of
 // backward_search_sorted ranks positions scattered over the whole text,
@@ -43,20 +41,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRecord = 8;  // int32 words per payloadR row
-
-// rank(c, pos) from the record `rec` of pos's block.
-__device__ __forceinline__ int32_t rank_in(const int32_t* __restrict__ rec,
-                                           int c, int32_t pos) {
-  const uint32_t match = static_cast<uint32_t>(__ldg(rec + 3 + c));
-  return __ldg(rec + c - 1) + __popc(match & psi::below_mask(pos));
-}
-
-__device__ __forceinline__ const int32_t* record(
-    const int32_t* __restrict__ payloadR, int32_t pos) {
-  return payloadR + static_cast<size_t>(static_cast<uint32_t>(pos) >> 5) *
-                        kRecord;
-}
 
 __global__ void rank_kernel(const int32_t* __restrict__ payloadR,
                             const int32_t* __restrict__ chars,
@@ -65,7 +49,7 @@ __global__ void rank_kernel(const int32_t* __restrict__ payloadR,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   const int32_t p = __ldg(pos + i);
-  out[i] = rank_in(record(payloadR, p), __ldg(chars + i), p);
+  out[i] = psi::rank_in(psi::record(payloadR, p), __ldg(chars + i), p);
 }
 
 __global__ void rank_lf_pair_kernel(const int32_t* __restrict__ payloadR,
@@ -83,16 +67,10 @@ __global__ void rank_lf_pair_kernel(const int32_t* __restrict__ payloadR,
   const int c = __ldg(chars + i);
   const int32_t l = __ldg(lo + i);
   const int32_t h = __ldg(hi + i);
-  const int32_t base = c_base[c];
-  const int32_t* rec_lo = record(payloadR, l);
-  const uint32_t match_lo = static_cast<uint32_t>(__ldg(rec_lo + 3 + c));
-  const int32_t occ_lo = __ldg(rec_lo + c - 1);
-  lo_out[i] = base + occ_lo + __popc(match_lo & psi::below_mask(l));
-  if ((static_cast<uint32_t>(h) >> 5) == (static_cast<uint32_t>(l) >> 5)) {
-    hi_out[i] = base + occ_lo + __popc(match_lo & psi::below_mask(h));
-  } else {
-    hi_out[i] = base + rank_in(record(payloadR, h), c, h);
-  }
+  int32_t rank_lo, rank_hi;
+  psi::rank_pair(payloadR, c, l, h, rank_lo, rank_hi);
+  lo_out[i] = c_base[c] + rank_lo;
+  hi_out[i] = c_base[c] + rank_hi;
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-// One level of the trie-batched FM backward search, one thread per child.
+// One level of the trie-batched FM backward search, two children per
+// thread.
 //
 // Replaces psi_tpu/ops/fm_fused.py::_fused_kernel, the Pallas kernel that
 // runs the whole level loop in one launch with the payload and the
@@ -7,81 +8,119 @@
 // buffers, so no kernel ever reads what it writes.
 //
 // Child i of the level computes, for its parent slot p and char c (1..4):
-//   lo'[i] = C[c] + rank_c(lo[p]),   hi'[i] = C[c] + rank_c(hi[p])
-// with the match-format payload payloadW [NW, 8, 128] (ops/fm_stream.py):
-// for text block b = pos >> 5, window w = b >> 7 and lane b & 127,
-//   rank_c(pos) = occ[w][c-1][lane] + popc(match[w][4+c-1][lane] & below)
-// where below = (1 << (pos & 31)) - 1, computed unsigned so offset 31
-// does not overflow.
+//   lo'[i] = C[c] + rank(c, lo[p]),   hi'[i] = C[c] + rank(c, hi[p])
+// over payloadC [4, NBpad, 2], the (occ_c, match_c) word of each char and
+// text block (payload_rank.cuh has the layouts and the arithmetic).
 //
-// What bounds it on an H100: two rounds of dependent, scattered 4-byte
-// reads per child (the parent's lo/hi, then the occ and match words of
-// the block each lands in); the arithmetic is a handful of integer ops.
-// At the main path's size the payload (~10 MB at 10 Mbp) and the
-// frontier (4 MB at 2^19 slots) both fit the 50 MB L2, so the reads are
-// served from L2 and the kernel is bound by L2 latency and transaction
-// rate, not HBM bandwidth. The design keeps the one thing that helps
-// that: the schedule orders children c-major with ascending parents, so
-// neighbouring threads of a warp gather neighbouring parents and mostly
-// land in the same or nearby payload windows, which coalesces the
-// frontier reads and shares L2 sectors for the payload reads. The TPU
-// kernel's VMEM residency, window loops and sequential-grid fusion have
-// no counterpart: the L2 plays the resident buffer.
+// What bounds it on an H100: three rounds of dependent reads per child.
+// The schedule (parent, char) is read coalesced; the parent's lo and hi
+// are gathered, but the schedule orders children c-major with ascending
+// parents, so a warp's parents are neighbours and its gathers share
+// sectors; then the rank word of lo's block, and of hi's block only where
+// it differs. payloadC is 10 MB at 10 Mbp and the frontier 4 MB at 2^19
+// slots: both stay in the 50 MB L2, so the cost is L2 latency and the
+// cache lines each warp's loads touch, not HBM bytes. The rank words are
+// the smaller part: a kernel that reads everything but them takes about
+// 85% of this one's time (psi_tpu_torch/tools/record_layouts.py). Of the
+// layouts that tool times, payloadC touches the fewest lines: a warp's
+// children share one char and have neighbouring parents, whose blocks
+// lie a few apart, and one 8-byte word per rank packs four blocks of one
+// char into a sector (psi_tpu's match-format payloadW needs two words 512
+// bytes apart; payloadR's 32-byte record per block, which one rank of a
+// scattered position wants, gives each child a sector of its own). Two
+// children per thread, loaded and stored as 8-byte pairs, keep more
+// gathers in flight per thread than one. C[0..4] comes from shared
+// memory, loaded once per thread block. The TPU kernel's VMEM residency,
+// window loops and sequential-grid fusion have no counterpart: the L2
+// plays the resident buffer.
+//
+// Neither chars (1..4), parents ([0, Mprev)) nor positions ([0, n]) are
+// checked on the device (psi_tpu's contract); the wrapper checks shapes,
+// types, contiguity and the 8-byte alignment of payloadC and of the
+// paired schedule and output arrays.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "payload_rank.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kLanes = 128;   // text blocks per payloadW window
-constexpr int kRows = 8;      // occ rows 0..3, match rows 4..7
 
-__device__ __forceinline__ int32_t rank_match(
-    const int32_t* __restrict__ payloadW, int32_t pos, int comp) {
-  const uint32_t b = static_cast<uint32_t>(pos) >> 5;
-  const int32_t* win =
-      payloadW + static_cast<size_t>(b >> 7) * (kRows * kLanes);
-  const uint32_t lane = b & (kLanes - 1);
-  const int32_t occ = __ldg(win + comp * kLanes + lane);
-  const uint32_t match =
-      static_cast<uint32_t>(__ldg(win + (4 + comp) * kLanes + lane));
-  const uint32_t below = (1u << (static_cast<uint32_t>(pos) & 31u)) - 1u;
-  return occ + __popc(match & below);
-}
-
+// Thread t runs children 2t and 2t + 1, loaded and stored as pairs;
+// where m is odd, thread 0 also runs the last child alone. Every rank word
+// of the pair is loaded before any rank is computed, so that all are in
+// flight at once: lo's word of each child, and hi's where hi's block
+// differs from lo's; hi's word is chosen from the two only after both
+// loads (a copy of lo's word made before hi's load would wait for lo's to
+// arrive). The chars pair is loaded after the frontier gathers, which
+// need only the parents. On an H100 the compiled order of these loads
+// matters: forms of this kernel that differed only in where the odd tail
+// is checked, or in the order of the schedule loads, ran 7-10% slower.
+// psi_tpu_torch/tools/record_layouts.py times this kernel ("the port's
+// trie_level") beside the same loads in a kernel of its own ("PC x2");
+// the two should agree.
 __global__ void trie_level_kernel(
-    const int32_t* __restrict__ payloadW, const int32_t* __restrict__ C,
-    const int32_t* __restrict__ parents, const int32_t* __restrict__ chars,
-    const int32_t* __restrict__ lo_in, const int32_t* __restrict__ hi_in,
-    int32_t* __restrict__ lo_out, int32_t* __restrict__ hi_out, int m) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int p = parents[i];
-  const int c = chars[i];
-  const int32_t base = __ldg(C + c);
-  lo_out[i] = base + rank_match(payloadW, __ldg(lo_in + p), c - 1);
-  hi_out[i] = base + rank_match(payloadW, __ldg(hi_in + p), c - 1);
+    const int32_t* __restrict__ payloadC, int nbpad,
+    const int32_t* __restrict__ C, const int32_t* __restrict__ parents,
+    const int32_t* __restrict__ chars, const int32_t* __restrict__ lo_in,
+    const int32_t* __restrict__ hi_in, int32_t* __restrict__ lo_out,
+    int32_t* __restrict__ hi_out, int m) {
+  __shared__ int32_t c_base[5];  // C[0..4]; chars are 1..4
+  if (threadIdx.x < 5) c_base[threadIdx.x] = C[threadIdx.x];
+  __syncthreads();
+  const int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if ((m & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
+    const int last = m - 1;
+    const int p = __ldg(parents + last);
+    const int c = __ldg(chars + last);
+    const int32_t l = __ldg(lo_in + p), h = __ldg(hi_in + p);
+    const int2 wl = psi::char_word(payloadC, nbpad, c, l);
+    const int2 wh = psi::char_word(payloadC, nbpad, c, h);
+    lo_out[last] = c_base[c] + psi::rank_of(wl, l);
+    hi_out[last] = c_base[c] + psi::rank_of(wh, h);
+  }
+  if ((i >> 1) >= (m >> 1)) return;
+  const int2 p = __ldg(reinterpret_cast<const int2*>(parents + i));
+  const int32_t l0 = __ldg(lo_in + p.x), h0 = __ldg(hi_in + p.x);
+  const int32_t l1 = __ldg(lo_in + p.y), h1 = __ldg(hi_in + p.y);
+  const int2 c = __ldg(reinterpret_cast<const int2*>(chars + i));
+  const size_t n = static_cast<size_t>(nbpad);
+  const bool apart0 = psi::block_of(h0) != psi::block_of(l0);
+  const bool apart1 = psi::block_of(h1) != psi::block_of(l1);
+  const int2 wl0 = psi::char_word(payloadC, n, c.x, l0);
+  const int2 wl1 = psi::char_word(payloadC, n, c.y, l1);
+  int2 wh0 = {0, 0}, wh1 = {0, 0};
+  if (apart0) wh0 = psi::char_word(payloadC, n, c.x, h0);
+  if (apart1) wh1 = psi::char_word(payloadC, n, c.y, h1);
+  const int2 lo = {c_base[c.x] + psi::rank_of(wl0, l0),
+                   c_base[c.y] + psi::rank_of(wl1, l1)};
+  const int2 hi = {c_base[c.x] + psi::rank_of(apart0 ? wh0 : wl0, h0),
+                   c_base[c.y] + psi::rank_of(apart1 ? wh1 : wl1, h1)};
+  *reinterpret_cast<int2*>(lo_out + i) = lo;
+  *reinterpret_cast<int2*>(hi_out + i) = hi;
 }
 
 }  // namespace
 
-extern "C" int psi_trie_level(const void* payloadW, const void* C,
+extern "C" int psi_trie_level(const void* payloadC, int nbpad, const void* C,
                               const void* parents, const void* chars,
                               const void* lo_in, const void* hi_in,
                               void* lo_out, void* hi_out, int m,
                               void* stream) {
   if (m > 0) {
-    const int grid = (m + kThreads - 1) / kThreads;
+    const int threads = (m + 1) / 2;
+    const int grid = (threads + kThreads - 1) / kThreads;
     trie_level_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(payloadW),
+        static_cast<const int32_t*>(payloadC), nbpad,
         static_cast<const int32_t*>(C),
         static_cast<const int32_t*>(parents),
         static_cast<const int32_t*>(chars),
         static_cast<const int32_t*>(lo_in),
-        static_cast<const int32_t*>(hi_in),
-        static_cast<int32_t*>(lo_out), static_cast<int32_t*>(hi_out), m);
+        static_cast<const int32_t*>(hi_in), static_cast<int32_t*>(lo_out),
+        static_cast<int32_t*>(hi_out), m);
   }
   return static_cast<int>(cudaGetLastError());
 }

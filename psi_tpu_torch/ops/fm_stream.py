@@ -6,18 +6,20 @@ are the same arrays, element for element:
     payloadT [16, NBpad] int32   rows 0..5 = occ checkpoints per symbol
                                  before each 32-position block, rows
                                  6..8 = BWT bit-plane words, rest pad
-    payloadW [NW, 8, 128] int32  match format: occ of A/C/G/T in rows
-                                 0..3, per-char match-mask words in rows
-                                 4..7, NW = NBpad / 128
 
-payloadW is always built: the TPU's VMEM residency budget that made it
-optional there does not apply to global memory. The port adds one layout
-of its own, built from payloadW on the device:
+and `match_format` gives psi_tpu's match-format payloadW [NW, 8, 128]
+(occ of A/C/G/T in rows 0..3, per-char match-mask words in rows 4..7,
+NW = NBpad / 128) on the host. The port keeps, beside payloadT, two
+layouts of its own, payloadW's words regrouped by block and by char:
 
     payloadR [NBpad, 8] int32    the rank record of each block: row b is
                                  (occ_1..occ_4, match_1..match_4) of block
-                                 b, payloadW regrouped by block; 32 bytes,
-                                 one L2 sector
+                                 b; 32 bytes, one L2 sector
+    payloadC [4, NBpad, 2] int32 word (c-1, b) is (occ_c, match_c) of
+                                 block b: one 8-byte load per rank, four
+                                 blocks of one char per sector
+
+No kernel reads payloadW, so it is not kept on the device.
 
 Kernels, each behind a wrapper that runs its plain PyTorch version for
 CPU tensors, launches the kernel for CUDA tensors (raising on any other
@@ -31,8 +33,9 @@ device) and counts those launches in `.launches`:
 
 The first three are the passes of the two-pass level route
 (ops/fm_trie.py); rank_lf_pair carries `backward_search_sorted`, the
-count query over sorted k-mer code rows, one launch per step. The last
-two read payloadR.
+count query over sorted k-mer code rows, one launch per step. rank4_pair
+reads payloadT, the rest payloadR; ops/fm_fused.py's trie_level, the main
+path, reads payloadC.
 """
 
 from __future__ import annotations
@@ -54,8 +57,8 @@ _U32 = 0xFFFFFFFF
 
 class StreamArrays(NamedTuple):
     payloadT: torch.Tensor  # int32 [16, NBpad]
-    payloadW: torch.Tensor  # int32 [NW, 8, 128]
     payloadR: torch.Tensor  # int32 [NBpad, 8]
+    payloadC: torch.Tensor  # int32 [4, NBpad, 2]
     C: torch.Tensor         # int32 [SIGMA+1]
     n: int                  # text length
     nblocks: int            # real blocks incl. the position-n spare
@@ -105,24 +108,32 @@ def match_format(payloadT: np.ndarray) -> np.ndarray:
     )
 
 
-def rank_records(payloadW: torch.Tensor) -> torch.Tensor:
-    """payloadR [NBpad, 8] from payloadW [NW, 8, 128], on its device: the
-    eight words of each block side by side."""
-    return payloadW.permute(0, 2, 1).reshape(-1, 8).contiguous()
+def rank_records(payloadT: np.ndarray) -> np.ndarray:
+    """payloadR [NBpad, 8] from payloadT: `match_format`'s eight words of
+    each block side by side."""
+    return np.ascontiguousarray(
+        match_format(payloadT).transpose(0, 2, 1).reshape(-1, 8))
+
+
+def char_words(records: np.ndarray) -> np.ndarray:
+    """payloadC [4, NBpad, 2] from payloadR: each char's (occ, match) word
+    pairs, block after block."""
+    return np.ascontiguousarray(
+        np.stack([records[:, :4].T, records[:, 4:].T], axis=-1))
 
 
 def stream_arrays_from_host(payloadT: np.ndarray, C: np.ndarray, n: int,
                             device: torch.device) -> StreamArrays:
-    """The three payload layouts on `device`. payloadR is built even where
-    only payloadW is read (the trie route): 32 bytes a block, 10 MB at
-    10 Mbp, one permute at set-up, kept so that StreamArrays stays one
-    immutable record for every route."""
+    """payloadT, payloadR and payloadC on `device` (20, 10 and 10 MB at 10
+    Mbp): the main path reads payloadC alone, the other routes payloadR,
+    and the two-pass route's rank4_pair payloadT. A fresh device
+    allocation is 32-byte aligned, as the kernels' wrappers require."""
     payloadT = np.ascontiguousarray(payloadT, dtype=np.int32)
-    payloadW = torch.from_numpy(match_format(payloadT)).to(device)
+    records = rank_records(payloadT)
     return StreamArrays(
         payloadT=torch.from_numpy(payloadT).to(device),
-        payloadW=payloadW,
-        payloadR=rank_records(payloadW),
+        payloadR=torch.from_numpy(records).to(device),
+        payloadC=torch.from_numpy(char_words(records)).to(device),
         C=torch.from_numpy(np.asarray(C).astype(np.int32)).to(device),
         n=int(n),
         nblocks=int(n) // SBLOCK + 1,
@@ -151,6 +162,43 @@ def below_mask(pos: torch.Tensor) -> torch.Tensor:
     return (torch.ones_like(pos, dtype=torch.int64) << (pos & 31).long()) - 1
 
 
+def check_vectors(name: str, dev: torch.device, pairs: tuple = (),
+                  **vectors) -> None:
+    """Contiguous int32 [M] vectors of one shape on `dev`; those named in
+    `pairs` also 8-byte aligned (their kernel loads or stores two items
+    at a time)."""
+    _build.check_int32(name, dev, **vectors)
+    shapes = {t.shape for t in vectors.values()}
+    if len(shapes) > 1 or any(len(shape) != 1 for shape in shapes):
+        raise ValueError(f"{name}: {', '.join(vectors)} must be [M] each")
+    for arg in pairs:
+        if vectors[arg].data_ptr() % 8:
+            raise ValueError(f"{name}: {arg} is not 8-byte aligned")
+
+
+def check_records(name: str, payloadR: torch.Tensor,
+                  dev: torch.device) -> None:
+    """payloadR for a kernel: a contiguous int32 [NBpad, 8] table on
+    `dev` whose base is 32-byte aligned (one record is one sector, read
+    by 16-byte loads)."""
+    _build.check_int32(name, dev, payloadR=payloadR)
+    if payloadR.dim() != 2 or payloadR.shape[1] != 8:
+        raise ValueError(f"{name}: payloadR must be [NBpad, 8]")
+    if payloadR.data_ptr() % 32:
+        raise ValueError(f"{name}: payloadR is not 32-byte aligned")
+
+
+def check_char_words(name: str, payloadC: torch.Tensor,
+                     dev: torch.device) -> None:
+    """payloadC for a kernel: a contiguous int32 [4, NBpad, 2] table on
+    `dev` whose base is 8-byte aligned (one word pair is one load)."""
+    _build.check_int32(name, dev, payloadC=payloadC)
+    if payloadC.dim() != 3 or payloadC.shape[0] != 4 or payloadC.shape[2] != 2:
+        raise ValueError(f"{name}: payloadC must be [4, NBpad, 2]")
+    if payloadC.data_ptr() % 8:
+        raise ValueError(f"{name}: payloadC is not 8-byte aligned")
+
+
 # --- rank4_pair: ranks of A/C/G/T at every lo and hi --------------------
 
 _RANK4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -158,39 +206,22 @@ _RANK4_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_void_p]
 
 
-def _match_word(pw: list, c) -> torch.Tensor:
-    """int64 match word of char(s) c: the AND over the three bit planes
-    of the plane or its complement, chosen by the bits of c (an int, or
-    a tensor of chars shaped like the planes)."""
-    match = torch.full_like(pw[0], _U32)
-    for p in range(3):
-        if isinstance(c, int):
-            bit = (c >> p) & 1
-            match &= pw[p] if bit else (~pw[p] & _U32)
-        else:
-            bit = ((c >> p) & 1).bool()
-            match &= torch.where(bit, pw[p], ~pw[p] & _U32)
-    return match
-
-
-def rank4_plain(payloadT: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def rank4_plain(payloadR: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of csrc/rank4.cu: int32 [4, M] ranks of
-    chars 1..4 at each position."""
-    cols = payloadT[:, (pos >> 5).long()]           # [16, M]
-    pw = [cols[6 + p].long() & _U32 for p in range(3)]
-    below = below_mask(pos)
-    out = []
-    for c in range(1, 5):
-        match = _match_word(pw, c)
-        out.append(cols[c] + popcount32(match & below).to(torch.int32))
-    return torch.stack(out)
+    chars 1..4 at each position, from the records of payloadR."""
+    rec = payloadR[(pos >> 5).long()]                # [M, 8]
+    match = rec[:, 4:].long() & _U32
+    ranks = rec[:, :4] + popcount32(match & below_mask(pos)[:, None]).to(
+        torch.int32)
+    return ranks.t().contiguous()
 
 
 def rank4_pair_plain(arrays: StreamArrays, lo: torch.Tensor,
                      hi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of csrc/rank4_pair.cu: int32 [4, M] ranks of
-    chars 1..4 at each lo and at each hi."""
-    return rank4_plain(arrays.payloadT, lo), rank4_plain(arrays.payloadT, hi)
+    chars 1..4 at each lo and at each hi (from payloadR, where the kernel
+    reads payloadT)."""
+    return rank4_plain(arrays.payloadR, lo), rank4_plain(arrays.payloadR, hi)
 
 
 def rank4_pair_stream(arrays: StreamArrays, lo: torch.Tensor,
@@ -275,30 +306,31 @@ compact_children.launches = 0
 
 # --- rank4: ranks of A/C/G/T at one position array ---------------------
 
-_RANK4_ONE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_RANK4_ONE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p]
 
 
 def rank4_stream(arrays: StreamArrays, pos: torch.Tensor) -> torch.Tensor:
     """Ranks of all four characters at every position of int32 `pos`
-    [M] in [0, n]: int32 [4, M]. psi_tpu's rank4_stream returns the same
+    [M] in [0, n] (8-byte aligned on the card, as a fresh tensor is):
+    int32 [4, M]. psi_tpu's rank4_stream returns the same
     numbers as [T, SLABS, 4, 8, 128] (`transpose(2,0,1,3,4).reshape(4,
     -1)`) from any of its four kernel variants."""
     dev = pos.device
     if dev.type == "cpu":
-        return rank4_plain(arrays.payloadT, pos)
+        return rank4_plain(arrays.payloadR, pos)
     if dev.type != "cuda":
         raise ValueError(f"rank4_stream: unsupported device {dev}")
-    _build.check_int32("rank4_stream", dev, payloadT=arrays.payloadT,
-                       pos=pos)
-    if pos.dim() != 1:
-        raise ValueError("rank4_stream: pos must be [M]")
+    check_records("rank4_stream", arrays.payloadR, dev)
+    check_vectors("rank4_stream", dev, pairs=("pos",), pos=pos)
     m = pos.shape[0]
     out = torch.empty((4, m), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
     _build.launch(
         "psi_rank4", _RANK4_ONE_ARGTYPES,
-        arrays.payloadT.data_ptr(), arrays.payloadT.shape[1],
-        pos.data_ptr(), out.data_ptr(), m, _build.stream_ptr(dev),
+        arrays.payloadR.data_ptr(), pos.data_ptr(), out.data_ptr(), m,
+        _build.stream_ptr(dev),
     )
     rank4_stream.launches += 1
     return out
@@ -316,6 +348,17 @@ _RANK_LF_PAIR_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 
 
+def _match_word(pw: list, c: torch.Tensor) -> torch.Tensor:
+    """int64 match words of chars c: the AND over the three bit planes
+    of the plane or its complement, chosen by the bits of c (a tensor of
+    chars shaped like the planes)."""
+    match = torch.full_like(pw[0], _U32)
+    for p in range(3):
+        bit = ((c >> p) & 1).bool()
+        match &= torch.where(bit, pw[p], ~pw[p] & _U32)
+    return match
+
+
 def rank_plain(payloadT: torch.Tensor, chars: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of csrc/rank.cu's psi_rank: int32 [M] ranks
@@ -328,20 +371,6 @@ def rank_plain(payloadT: torch.Tensor, chars: torch.Tensor,
         torch.int32)
 
 
-def _check_records(name: str, arrays: StreamArrays, dev: torch.device,
-                   **tensors) -> None:
-    """The checks of the payloadR kernels' wrappers: int32 [M] inputs of
-    one shape, and a 32-byte aligned [NBpad, 8] record table."""
-    _build.check_int32(name, dev, payloadR=arrays.payloadR, **tensors)
-    shapes = {t.shape for t in tensors.values()}
-    if len(shapes) != 1 or len(next(iter(shapes))) != 1:
-        raise ValueError(f"{name}: {', '.join(tensors)} must be [M] each")
-    if arrays.payloadR.dim() != 2 or arrays.payloadR.shape[1] != 8:
-        raise ValueError(f"{name}: payloadR must be [NBpad, 8]")
-    if arrays.payloadR.data_ptr() % 32:
-        raise ValueError(f"{name}: payloadR is not 32-byte aligned")
-
-
 def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
                 pos: torch.Tensor) -> torch.Tensor:
     """Batched rank(c, i), the number of c in bwt[0:i], for int32 chars
@@ -352,7 +381,8 @@ def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
         return rank_plain(arrays.payloadT, chars, pos)
     if dev.type != "cuda":
         raise ValueError(f"rank_stream: unsupported device {dev}")
-    _check_records("rank_stream", arrays, dev, chars=chars, pos=pos)
+    check_records("rank_stream", arrays.payloadR, dev)
+    check_vectors("rank_stream", dev, chars=chars, pos=pos)
     m = pos.shape[0]
     out = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
@@ -389,7 +419,8 @@ def rank_lf_pair(arrays: StreamArrays, chars: torch.Tensor, lo: torch.Tensor,
         return rank_lf_pair_plain(arrays, chars, lo, hi)
     if dev.type != "cuda":
         raise ValueError(f"rank_lf_pair: unsupported device {dev}")
-    _check_records("rank_lf_pair", arrays, dev, chars=chars, lo=lo, hi=hi)
+    check_records("rank_lf_pair", arrays.payloadR, dev)
+    check_vectors("rank_lf_pair", dev, chars=chars, lo=lo, hi=hi)
     _build.check_int32("rank_lf_pair", dev, C=arrays.C)
     m = lo.shape[0]
     lo_out = torch.empty(m, dtype=torch.int32, device=dev)

@@ -59,7 +59,7 @@ def test_trie_level_kernel_matches_plain(index, dev):
     want_lo, want_hi = prep.lo0, prep.hi0
     for j in range(prep.parents.shape[0]):
         want_lo, want_hi = fm_fused.trie_level_plain(
-            arr.payloadW, arr.C, prep.parents[j], prep.chars[j], want_lo,
+            arr.payloadC, arr.C, prep.parents[j], prep.chars[j], want_lo,
             want_hi)
     torch.cuda.synchronize()
     assert fm_fused.trie_level.launches == n0 + prep.parents.shape[0]
@@ -104,7 +104,7 @@ def test_rank_kernels_match_plain(index, dev):
         r4 = (fm_stream.rank4_stream(arr, lo), fm_stream.rank4_stream(arr, hi))
         assert fm_stream.rank4_stream.launches == n0 + 2
         for got, pos in zip(r4, (lo, hi)):
-            assert torch.equal(got, fm_stream.rank4_plain(arr.payloadT, pos))
+            assert torch.equal(got, fm_stream.rank4_plain(arr.payloadR, pos))
         scattered = lo.flip(0)
         n0 = fm_stream.rank_stream.launches
         got = fm_stream.rank_stream(arr, prep.chars[j], scattered)
@@ -201,6 +201,55 @@ def test_rank_lf_pair_kernel_matches_plain(index, dev):
         fm_stream.rank_lf_pair(off, chars, lo, hi)
     with pytest.raises(ValueError, match=r"must be \[M\]"):
         fm_stream.rank_lf_pair(arr, chars, lo, hi[:-1])
+
+
+@pytest.mark.parametrize("odd", [False, True])
+def test_trie_level_and_rank4_kernels_at_edges(index, dev, odd):
+    """trie_level over payloadC (each edge pair a parent with its four
+    children, c-major) and rank4 over payloadR (at every lo and hi)
+    against their plain versions at the edges, one launch each and none
+    for an empty rank4 batch, with an even and an odd number of items (the
+    last thread's single item); misaligned tables and pairs are
+    refused."""
+    fm, _, _ = index
+    arr = fm_stream.build_stream_arrays(fm, dev)
+    _, lo, hi = _edge_pairs(fm.size, np.random.RandomState(3), dev)
+    m = len(lo)
+    parent = torch.arange(m, dtype=torch.int32, device=dev).repeat(4)
+    char = torch.arange(1, 5, dtype=torch.int32,
+                        device=dev).repeat_interleave(m)
+    pos = torch.cat([lo, hi])
+    if odd:
+        parent, char, pos = parent[:-1], char[:-1], pos[:-1]
+    out = (torch.empty_like(parent), torch.empty_like(parent))
+    n0 = fm_fused.trie_level.launches, fm_stream.rank4_stream.launches
+    fm_fused.trie_level(arr.payloadC, arr.C, parent, char, lo, hi, *out)
+    r4 = fm_stream.rank4_stream(arr, pos)
+    empty = fm_stream.rank4_stream(arr, pos[:0])
+    torch.cuda.synchronize()
+    assert (fm_fused.trie_level.launches,
+            fm_stream.rank4_stream.launches) == (n0[0] + 1, n0[1] + 1)
+    want = fm_fused.trie_level_plain(arr.payloadC, arr.C, parent, char, lo,
+                                     hi)
+    assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+    assert torch.equal(r4, fm_stream.rank4_plain(arr.payloadR, pos))
+    assert empty.shape == (4, 0)
+    for i in range(4):
+        for c in range(1, 5):
+            assert int(r4[c - 1, m + i]) == fm.rank(c, int(hi[i]))
+            assert int(out[1][(c - 1) * m + i]) == (fm.C[c]
+                                                     + fm.rank(c, int(hi[i])))
+    off_c = arr.payloadC.reshape(-1)[1:-7].reshape(4, -1, 2)
+    off_r = arr.payloadR.reshape(-1)[1:-7].reshape(-1, 8)
+    with pytest.raises(ValueError, match="payloadC is not 8-byte aligned"):
+        fm_fused.trie_level(off_c, arr.C, parent, char, lo, hi, *out)
+    with pytest.raises(ValueError, match="parent is not 8-byte aligned"):
+        fm_fused.trie_level(arr.payloadC, arr.C, parent[1:], char[1:], lo, hi,
+                            out[0][1:], out[1][1:])
+    with pytest.raises(ValueError, match="payloadR is not 32-byte aligned"):
+        fm_stream.rank4_stream(arr._replace(payloadR=off_r), pos)
+    with pytest.raises(ValueError, match="pos is not 8-byte aligned"):
+        fm_stream.rank4_stream(arr, pos[1:])
 
 
 @pytest.mark.parametrize("width", [4, 8])

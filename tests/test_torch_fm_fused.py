@@ -1,8 +1,9 @@
 """psi_tpu_torch.ops.fm_fused against psi_tpu.ops.fm_fused: the trie-level
-kernel's plain version, chained over every level, against the fused
-Pallas kernel (interpret mode), on identical state given through
-psi_tpu_torch.convert. int32 throughout: equality is exact over all
-Npad slots."""
+kernel's plain version (over the per-char rank words payloadC), chained over
+every level, against the fused Pallas kernel (interpret mode), on
+identical state given through psi_tpu_torch.convert; and one level at
+the edges of a rank against the host FM index. int32 throughout:
+equality is exact over all Npad slots."""
 
 import importlib
 
@@ -19,6 +20,7 @@ from psi_tpu.ops import fm_stream as jfs
 from psi_tpu.ops import fm_trie as jtrie
 from psi_tpu_torch import convert
 from psi_tpu_torch.ops import fm_fused, fm_stream
+from tests.test_torch_fm_stream import EDGES, _edge_pairs, _edge_select
 
 CPU = torch.device("cpu")
 K = 12
@@ -84,7 +86,35 @@ def test_trie_level_is_one_lf_step(setup):
     char = torch.arange(1, 5, dtype=torch.int32)
     root_lo = torch.zeros(1, dtype=torch.int32)
     root_hi = torch.full((1,), fm.size, dtype=torch.int32)
-    lo, hi = fm_fused.trie_level_plain(arr.payloadW, arr.C, parent, char,
+    lo, hi = fm_fused.trie_level_plain(arr.payloadC, arr.C, parent, char,
                                        root_lo, root_hi)
     for c in range(1, 5):
         assert (int(lo[c - 1]), int(hi[c - 1])) == fm.lf_step(c, 0, fm.size)
+
+
+@pytest.mark.parametrize("edge", EDGES)
+def test_trie_level_plain_edges(setup, edge):
+    """One level through trie_level on the CPU (its plain version) from a
+    frontier of edge pairs, each parent's four children in c-major order
+    as the schedule lays them out: every child is C[c] + the host FM
+    index's rank at its parent's lo and hi."""
+    fm, _, _ = setup
+    arr = fm_stream.build_stream_arrays(fm, CPU)
+    _, lo, hi = _edge_select(edge, *_edge_pairs(fm.size,
+                                                np.random.RandomState(7)),
+                             fm.size)
+    m = len(lo)
+    parent = torch.arange(m, dtype=torch.int32).repeat(4)
+    char = torch.arange(1, 5, dtype=torch.int32).repeat_interleave(m)
+    out = (torch.empty(4 * m, dtype=torch.int32),
+           torch.empty(4 * m, dtype=torch.int32))
+    n0 = fm_fused.trie_level.launches
+    fm_fused.trie_level(arr.payloadC, arr.C, parent, char, lo, hi, *out)
+    assert fm_fused.trie_level.launches == n0    # CPU: plain version
+    plain = fm_fused.trie_level_plain(arr.payloadC, arr.C, parent, char, lo,
+                                      hi)
+    for got, want in zip(out, plain):
+        assert torch.equal(got, want)
+    want = [fm.lf_step(int(c), int(lo[p]), int(hi[p]))
+            for p, c in zip(parent, char)]
+    np.testing.assert_array_equal(torch.stack(out, 1).numpy(), want)

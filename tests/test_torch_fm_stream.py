@@ -1,9 +1,11 @@
 """psi_tpu_torch.ops.fm_stream against psi_tpu.ops.fm_stream: the payload
-layouts and the port's own rank records (payloadR); the plain versions of
+layouts and the port's own (payloadR, payloadC); the plain versions of
 the rank4_pair, rank4, compact, rank and rank_lf_pair kernels against the
-Pallas kernels (interpret mode, every variant); and backward_search_sorted
-against psi_tpu's, with and without ftab seeds and at the edges of its
-ranges.
+Pallas kernels (interpret mode, every variant) and, at the edges of a
+rank (block offsets 0 and 31, position n, ranges inside one block or
+across blocks, empty ranges), against the host FM index; and
+backward_search_sorted against psi_tpu's, with and without ftab seeds
+and at the edges of its ranges.
 Inputs are identical, given through psi_tpu_torch.convert. Everything is
 int32: equality is exact, and for SA ranges (R3) `hi - lo` everywhere and
 `lo` where the range is not empty."""
@@ -59,8 +61,9 @@ def test_payloads_match_psi_tpu(seed):
     for arr in (got, conv):
         np.testing.assert_array_equal(arr.payloadT.numpy(),
                                       np.asarray(ref.payloadT))
-        np.testing.assert_array_equal(arr.payloadW.numpy(),
-                                      np.asarray(ref.payloadW))
+        np.testing.assert_array_equal(
+            fm_stream.match_format(arr.payloadT.numpy()),
+            np.asarray(ref.payloadW))
         np.testing.assert_array_equal(arr.C.numpy(), np.asarray(ref.C))
         assert (arr.n, arr.nblocks) == (ref.n, ref.nblocks)
 
@@ -82,14 +85,16 @@ def _records_numpy(payloadT: np.ndarray) -> np.ndarray:
 
 @pytest.mark.parametrize("seed", [5, 6])
 def test_payload_records(seed):
-    """payloadR is payloadW regrouped by block, equals a numpy build from
-    payloadT, holds the BWT's match bits, and convert carries it."""
+    """payloadR is psi_tpu's payloadW regrouped by block, equals a numpy
+    build from payloadT, holds the BWT's match bits, and convert carries
+    it."""
     fm = _fm(seed)
+    ref = jfs.build_stream_arrays(fm)
     got = fm_stream.build_stream_arrays(fm, CPU)
-    conv = convert.stream_arrays(jfs.build_stream_arrays(fm), CPU)
+    conv = convert.stream_arrays(ref, CPU)
     want = _records_numpy(got.payloadT.numpy())
     nbpad = got.payloadT.shape[1]
-    w = got.payloadW.numpy()
+    w = np.asarray(ref.payloadW)
     for arr in (got, conv):
         rec = arr.payloadR.numpy()
         assert rec.shape == (nbpad, 8) and arr.payloadR.is_contiguous()
@@ -107,18 +112,85 @@ def test_payload_records(seed):
             want[blocks, c - 1], [fm.rank(c, 32 * b) for b in blocks])
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_char_words(seed):
+    """payloadC is psi_tpu's payloadW regrouped by char and block: word
+    (c-1, b) is (occ_c, match_c) of block b, as in payloadR; convert
+    carries it."""
+    fm = _fm(seed)
+    ref = jfs.build_stream_arrays(fm)
+    w = np.asarray(ref.payloadW)
+    nbpad = w.shape[0] * w.shape[2]
+    blocks = np.arange(nbpad)
+    for arr in (fm_stream.build_stream_arrays(fm, CPU),
+                convert.stream_arrays(ref, CPU)):
+        words = arr.payloadC.numpy()
+        assert words.shape == (4, nbpad, 2) and arr.payloadC.is_contiguous()
+        for c in range(1, 5):
+            np.testing.assert_array_equal(
+                words[c - 1, :, 0], w[blocks >> 7, c - 1, blocks & 127])
+            np.testing.assert_array_equal(
+                words[c - 1, :, 1], w[blocks >> 7, 3 + c, blocks & 127])
+            rec = arr.payloadR.numpy()
+            np.testing.assert_array_equal(words[c - 1],
+                                          rec[:, [c - 1, 3 + c]])
+
+
 def _edge_pairs(n, rng, m=4000):
     """lo <= hi pairs at the kernels' edges: empty ranges, ranges inside
     one 32-position block, ranges that straddle one or many blocks, and
-    both ends of the text; chars 1..4 each."""
+    both ends of the text (ranges ending at n, in the spare block); chars
+    1..4 each."""
     lo = rng.randint(0, n + 1, size=m)
     width = rng.choice([0, 1, 3, 31, 32, 33, 200], size=m)
     hi = np.minimum(lo + width, n)
     lo[:4], hi[:4] = (0, 0, n, 0), (0, n, n, 1)
     straddle = 32 * rng.randint(1, n // 32, size=200)
     lo[4:204], hi[4:204] = straddle - 1, straddle + 1
+    lo[204:216] = n - np.array([0, 1, 2, 5, 30, 31, 32, 33, 63, 64, 100, 500])
+    hi[204:216] = n
     chars = np.arange(m) % 4 + 1
     return [torch.from_numpy(a.astype(np.int32)) for a in (chars, lo, hi)]
+
+
+#: the edges of a rank at which `_edge_select` picks pairs
+EDGES = ["offsets", "at_n", "one_block", "straddle", "empty"]
+
+
+def _edge_select(edge, chars, lo, hi, n):
+    """The pairs of `_edge_pairs` at one edge: an end at block offset 0
+    or 31; hi at position n; lo < hi in one 32-position block; lo and hi
+    in different blocks; lo == hi. Each edge has pairs of all four
+    chars."""
+    off_lo, off_hi = lo & 31, hi & 31
+    mask = {
+        "offsets": (off_lo == 0) | (off_lo == 31) | (off_hi == 0)
+        | (off_hi == 31),
+        "at_n": hi == n,
+        "one_block": ((lo >> 5) == (hi >> 5)) & (hi > lo),
+        "straddle": (lo >> 5) != (hi >> 5),
+        "empty": lo == hi,
+    }[edge]
+    assert set(chars[mask].tolist()) == {1, 2, 3, 4}
+    return chars[mask], lo[mask], hi[mask]
+
+
+@pytest.mark.parametrize("edge", EDGES)
+def test_rank4_plain_edges(fm, edge):
+    """rank4_stream on the CPU (its plain version, over payloadR) at both
+    ends of the edge pairs is the host FM index's rank of every char."""
+    arr = fm_stream.build_stream_arrays(fm, CPU)
+    _, lo, hi = _edge_select(edge, *_edge_pairs(fm.size,
+                                                np.random.RandomState(4)),
+                             fm.size)
+    pos = torch.cat([lo, hi])
+    n0 = fm_stream.rank4_stream.launches
+    got = fm_stream.rank4_stream(arr, pos)
+    assert fm_stream.rank4_stream.launches == n0        # CPU: plain version
+    assert got.dtype == torch.int32 and got.shape == (4, len(pos))
+    assert torch.equal(got, fm_stream.rank4_plain(arr.payloadR, pos))
+    want = [[fm.rank(c, int(q)) for q in pos] for c in range(1, 5)]
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_rank_lf_pair_plain_matches_rank(fm):

@@ -196,11 +196,10 @@ def test_host_library_builds_and_loads(monkeypatch, tmp_path):
 
 def test_wrappers_raise_on_devices_without_a_kernel():
     t = torch.zeros(8192, dtype=torch.int32, device="meta")
-    w = torch.zeros((1, 8, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        fm_fused.trie_level(w, t, t, t, t, t, t, t)
-    arrays = fm_stream.StreamArrays(t.reshape(16, -1), w, t.reshape(-1, 8),
-                                    t, 0, 1)
+        fm_fused.trie_level(t.reshape(4, -1, 2), t, t, t, t, t, t, t)
+    arrays = fm_stream.StreamArrays(t.reshape(16, -1), t.reshape(-1, 8),
+                                    t.reshape(4, -1, 2), t, 0, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         fm_stream.rank4_pair_stream(arrays, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
