@@ -22,8 +22,11 @@ exits non-zero and prints no result):
     queued first), the enqueued time and the plain time, and each
     kernel's bound from the bytes this run's inputs need; the distinct
     payloadC sectors (and, for comparison, payloadR records) per child
-    of trie_level and payloadR records per position of rank4; rank at
-    the trie step's positions too; expand + locate time;
+    of trie_level and payloadR records per position of rank4; compact
+    also warm, as its route runs it (rank4_pair for the level just
+    before, events around compact alone), with the distinct rank-table
+    sectors per child and a bound from them; rank at the trie step's
+    positions too; expand + locate time;
  5. [routes] on chunk 1's distinct keys, each level route through
     `trie_search` (fused; two-pass with rank4_pair; two-pass with two
     rank4 launches) and `backward_search_sorted` from the ftab frontier,
@@ -49,8 +52,9 @@ exits non-zero and prints no result):
     device, enqueued and plain times, its bound from the table sectors this
     run's words land on, and the sectors per key; the row gather on the
     same steps' positions, scattered as the route gives them and sorted,
-    with device, enqueued, plain and `torch.index_select` times and the
-    bound; `backward_search_pallas` on the padded table (one LF-step
+    with device, enqueued, plain and `torch.index_select` times, the
+    distinct table sectors per position and the bounds from the bytes and
+    from the sectors; `backward_search_pallas` on the padded table (one LF-step
     launch per column) and `gather_occ_rows_blocked` (one row gather)
     agree; the dense search's device operations by the profiler; then
     the MEM API: `find_mems_arrays` over chunk 1's reads on cuda equals
@@ -76,31 +80,27 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 
-REF_LEN = 5_000_000
-VARIANT_RATE = 0.004
-GRAPH_SEED = 1
-READ_LEN = 100
-ERROR_RATE = 0.01
-N_CHUNKS = 3
-CHUNK = 100_000
-SEED_LEN = 20
-N_PATHS = 2
+from psi_tpu_torch.tools.bacterial import (  # noqa: E402
+    CHUNK, N_CHUNKS, N_PATHS, REF_LEN, SEED_LEN, first_chunk_index,
+    lf_steps as replay_lf_steps, make_data)
+from psi_tpu_torch.tools.timing import (  # noqa: E402
+    HBM_BYTES_PER_S, bracketed_ms, card_line, cuda_ms, r4_sectors,
+    row_sectors)
+
 N_SAMPLED_KEYS = 10_000
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
 ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
-SPIN_CYCLES = 2_000_000_000
-#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
-#: rate outside the tensor cores, taken for the kernels' 32-bit integer
-#: operations
-HBM_BYTES_PER_S = 3.35e12
+WARM_REPS = 8      # rounds of the 9 levels for compact's warm time
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA's data sheet),
+#: taken for the kernels' 32-bit integer operations
 INT32_OPS_PER_S = 67e12
 
 
@@ -115,18 +115,6 @@ def phase(name: str, msg: str) -> None:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-# --- phase 1: the card ------------------------------------------------------
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def build_all():
@@ -152,88 +140,7 @@ def build_all():
             host_s)
 
 
-# --- phase 3: data ------------------------------------------------------------
-
-def write_gfa(graph, path: str) -> None:
-    """GFA 1 (S, L, P lines) of a forward-only Graph."""
-    coords = graph.coord_ids
-    loff = graph.label_offsets
-    labels = graph.labels.tobytes().decode("ascii")
-    indptr = graph.out_indptr
-    with open(path, "w") as fh:
-        fh.write("H\tVN:Z:1.0\n")
-        for r in range(graph.node_count):
-            fh.write(f"S\t{coords[r]}\t{labels[loff[r]:loff[r + 1]]}\n")
-        for r in range(graph.node_count):
-            for v in graph.out_indices[indptr[r]:indptr[r + 1]]:
-                fh.write(f"L\t{coords[r]}\t+\t{coords[v - 1]}\t+\t0M\n")
-        for name, nodes in graph.paths:
-            segs = ",".join(f"{coords[v - 1]}+" for v in nodes)
-            fh.write(f"P\t{name}\t{segs}\t*\n")
-
-
-def write_reads(haps, path: str, n: int, seed: int) -> None:
-    """n reads of READ_LEN from the haplotypes (uniform over positions),
-    each base substituted with probability ERROR_RATE, as FASTQ."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    code = np.zeros(256, dtype=np.int64)
-    code[bases] = np.arange(4)
-    seqs = [np.frombuffer(h.encode("ascii"), dtype=np.uint8) for h in haps]
-    spans = np.array([len(s) - READ_LEN + 1 for s in seqs], dtype=np.int64)
-    which = rng.choice(len(seqs), size=n, p=spans / spans.sum())
-    reads = np.empty((n, READ_LEN), dtype=np.uint8)
-    for i, s in enumerate(seqs):
-        sel = np.nonzero(which == i)[0]
-        starts = rng.randint(0, spans[i], size=len(sel))
-        reads[sel] = s[starts[:, None] + np.arange(READ_LEN)]
-    mutate = rng.random_sample(reads.shape) < ERROR_RATE
-    shifted = bases[(code[reads] + rng.randint(1, 4, size=reads.shape)) % 4]
-    reads = np.where(mutate, shifted, reads)
-    qual = b"I" * READ_LEN
-    with open(path, "wb") as fh:
-        for i in range(n):
-            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), qual))
-
-
-def make_data(tmp: str, ref_len: int, n_reads: int):
-    from psi_tpu_torch.pathutil import sequence
-    from psi_tpu_torch.simulate import make_pangenome_graph
-    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
-
-    graph = make_pangenome_graph(ref_len, VARIANT_RATE, seed=GRAPH_SEED)
-    gfa = os.path.join(tmp, "pangenome.gfa")
-    write_gfa(graph, gfa)
-    haps = [sequence(h) for _, h in simulate_haplotypes(graph, 4, seed=7)]
-    fastq = os.path.join(tmp, "reads.fastq")
-    write_reads(haps, fastq, n_reads, seed=11)
-    return gfa, fastq
-
-
 # --- phase 4: kernels against their plain versions -----------------------------
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs, by CUDA events
-    after one warm-up run. A spin kernel queued first holds the stream
-    until every run is enqueued, so the host's launch overhead between
-    launches is not counted (keep reps x launches per run well under the
-    ~1000 launches CUDA queues ahead)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
 
 def enqueue_ms(fn, reps: int) -> float:
     """Mean host milliseconds per fn() when runs follow each other and end
@@ -288,25 +195,6 @@ def max_abs_err(got, want) -> int:
     require(got.shape == want.shape,
             f"shape {tuple(got.shape)} != {tuple(want.shape)}")
     return int((got.long() - want.long()).abs().max().item())
-
-
-def first_chunk_index(finder, fastq: str, chunk: int):
-    from psi_tpu_torch.io.fastq import FastxStream
-    from psi_tpu_torch.records import Records
-
-    names, packed = FastxStream(fastq).read_chunk_packed(chunk)
-    reads = Records(names, rec_offset=0, packed=packed)
-    seeds = finder.get_seeds(reads)
-    index = finder.index_reads(seeds)
-    t0 = time.monotonic()
-    finder._get_ftab()
-    phase("prepare", f"ftab (4^p SA ranges, once per index): "
-          f"{time.monotonic() - t0:.4f} s")
-    t0 = time.monotonic()
-    finder.prepare_onpath(index)
-    phase("prepare", f"trie plan (schedule + padding + upload) of chunk 1: "
-          f"{time.monotonic() - t0:.4f} s")
-    return reads, seeds, index
 
 
 def profile_query(finder, seeds, index) -> dict:
@@ -366,8 +254,10 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 # rank tables that compact reads are counted, as the 4-byte words this
 # run's (char, parent) pairs land on: they are an output of the launch
 # before, and the timed loop cycles through every level's tables (9 x 16
-# MiB), so they come from HBM there. Operations per element are counted
-# from the kernel sources.
+# MiB), so they come from HBM there. The *_sector_work functions count,
+# for compact and the row gather, the 32-byte sectors that such a table's
+# words or rows land on instead, as occ_lf_pair_work does. Operations per
+# element are counted from the kernel sources.
 
 def trie_level_work(parents, chars, lo, hi):
     return nbytes(parents, chars, lo, hi) + nbytes(lo, hi), \
@@ -387,6 +277,16 @@ def compact_work(r4lo, parents, chars):
     return nbytes(parents, chars) * 2 + 2 * 4 * pairs, 6 * parents.numel()
 
 
+def compact_sector_work(r4lo, parents, chars):
+    """Parents and chars read, lo' and hi' written, and one 32-byte
+    sector of r4lo and one of r4hi for each distinct sector their words
+    land on: a sector, not the 4-byte word that compact_work counts, is
+    the least the card moves from a table past L2."""
+    return (nbytes(parents, chars) * 2
+            + 2 * 32 * r4_sectors(r4lo.shape[1], parents, chars)), \
+        6 * parents.numel()
+
+
 def rank_work(chars, pos):
     return nbytes(chars, pos) + nbytes(pos), 12 * pos.numel()
 
@@ -397,6 +297,15 @@ def occ_gather_work(occ, pos):
     row = occ.shape[1] * occ.element_size()
     return nbytes(pos) + row * (n_unique(pos) + pos.numel()), \
         4 * pos.numel()
+
+
+def occ_gather_sector_work(occ, pos):
+    """Positions read, every output row written, and one 32-byte sector
+    for each distinct sector of the table (past L2) that the rows lie in,
+    where occ_gather_work counts the distinct rows' bytes."""
+    row = occ.shape[1] * occ.element_size()
+    return (nbytes(pos) + row * pos.numel()
+            + 32 * row_sectors(occ.shape[1], pos)), 4 * pos.numel()
 
 
 def rank_lf_pair_work(c, lo, hi):
@@ -445,6 +354,14 @@ def occ_lf_pair_work(occ, c, lo, hi):
             + 32 * occ_sectors(occ, c, lo, hi)), 8 * lo.numel()
 
 
+def mean_bound(work) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, bytes, operations) of the mean launch of
+    `work`, a list of (bytes, operations) per launch."""
+    bytes_moved = sum(b for b, _ in work) / len(work)
+    ops = sum(o for _, o in work) / len(work)
+    return (*bound(bytes_moved, ops), bytes_moved, ops)
+
+
 def measure(name, kernel, plain, per_run, work, err, shape,
             plain_reps=PLAIN_REPS, library=None, tag="kernels") -> dict:
     """Device, enqueued and plain ms per launch of one kernel, beside its
@@ -456,9 +373,7 @@ def measure(name, kernel, plain, per_run, work, err, shape,
     plain_ms = cuda_ms(plain, plain_reps) / per_run
     library_ms = (None if library is None
                   else cuda_ms(library, KERNEL_REPS) / per_run)
-    bytes_moved = sum(b for b, _ in work) / len(work)
-    ops = sum(o for _, o in work) / len(work)
-    bound_ms, bound_by = bound(bytes_moved, ops)
+    bound_ms, bound_by, bytes_moved, ops = mean_bound(work)
     lib = ("" if library_ms is None
            else f", library {1e3 * library_ms:.3f}")
     phase(tag, f"{name}: {1e3 * ms:.3f} us/launch on the device "
@@ -664,6 +579,29 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     shape = f"{npad} slots x {levels} levels"
     records = {name: measure(name, *run, err[name.split(" ")[0]], shape)
                for name, run in runs.items()}
+
+    # compact as its route runs it ("warm"): rank4_pair for the level just
+    # before, so the rank tables it reads sit in L2, with CUDA events
+    # around compact alone; its bound from the sectors the cold loop
+    # above reads (9 levels of 16 MB tables cycled)
+    cp = records["compact"]
+    cp["warm_ms"] = bracketed_ms(
+        lambda j: fm_stream.rank4_pair_stream(sarr, *fronts[j]),
+        lambda j, r4: fm_stream.compact_children(*r4, par[j], chs[j], sarr.C),
+        levels, WARM_REPS)
+    cp["sector_bound_ms"], _, cp["sector_bytes"], _ = mean_bound(
+        [compact_sector_work(r4s[j][0], par[j], chs[j])
+         for j in range(levels)])
+    cp["r4_sectors_per_child"] = sum(
+        r4_sectors(npad, par[j], chs[j]) for j in range(levels)) / (
+        levels * npad)
+    phase("kernels", f"compact warm (rank4_pair just before, events around "
+          f"compact alone): {1e3 * cp['warm_ms']:.3f} us/launch (cold "
+          f"{1e3 * cp['ms']:.3f}); {cp['r4_sectors_per_child']:.4f} "
+          f"distinct sectors of each rank table per child; sector bound "
+          f"{1e3 * cp['sector_bound_ms']:.3f} us "
+          f"({cp['sector_bytes'] / 1e6:.2f} MB/launch), byte bound "
+          f"{1e3 * cp['bound_ms']:.3f} us")
 
     # the rank words each launch reads: for trie_level, distinct payloadC
     # sectors per child (siblings of one char, neighbouring parents and lo
@@ -949,13 +887,7 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict, dict]:
 
     # every step's inputs of the dense route, replayed with the plain
     # version; after the first step the positions scatter over the text
-    weights = 4 ** torch.arange(p - 1, -1, -1, device=dev)
-    start = arrays.ftab[((codes[:, :p].long() - 1) * weights).sum(dim=1)]
-    lo, hi = start[:, 0].contiguous(), start[:, 1].contiguous()
-    lf_steps = []
-    for c in codes[:, p:].t().contiguous():
-        lf_steps.append((c, lo, hi))
-        lo, hi = fm_pallas.lf_pair_plain(arrays.occ_dense, arrays.C, c, lo, hi)
+    lf_steps, (lo, hi) = replay_lf_steps(arrays, codes, p)
     require(_same_ranges((lo.cpu().numpy(), hi.cpu().numpy()),
                          ranges["dense"]),
             "backward_search_codes differs from its plain replay")
@@ -1032,6 +964,17 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict, dict]:
             phase("gather", f"occ_gather W={width} {order}, device busy by "
                   f"the profiler (us/launch): " + ", ".join(
                       f"{k} {1e3 * v:.3f}" for k, v in rec["busy_ms"].items()))
+            rec["sector_bound_ms"], _, rec["sector_bytes"], _ = mean_bound(
+                [occ_gather_sector_work(occ, q) for q in pos])
+            rec["sectors_per_position"] = sum(
+                row_sectors(occ.shape[1], q) for q in pos) / (
+                len(pos) * pos[0].numel())
+            phase("gather", f"occ_gather W={width} {order}: "
+                  f"{rec['sectors_per_position']:.4f} distinct table sectors "
+                  f"per position; sector bound "
+                  f"{1e3 * rec['sector_bound_ms']:.3f} us "
+                  f"({rec['sector_bytes'] / 1e6:.2f} MB/launch), byte bound "
+                  f"{1e3 * rec['bound_ms']:.3f} us")
             variants[f"W{width} {order}"] = rec
 
     # psi_tpu's padded-table search (from the root) and blocked gather,
@@ -1355,12 +1298,21 @@ def main(argv=None) -> int:
                 k: scattered[k] for k in
                 ("ms", "enqueued_ms", "plain_ms", "bound_ms",
                  "records_per_position", "shape")}
+        if kname == "compact":
+            kernels[-1].update({k: rec[k] for k in (
+                "warm_ms", "sector_bound_ms", "sector_bytes",
+                "r4_sectors_per_child")})
         if kname in ("occ_gather", "occ_lf_pair"):
             kernels[-1]["variants"] = {
                 v: {k: r.get(k) for k in ("ms", "enqueued_ms", "plain_ms",
                                           "library_ms", "bound_ms", "bytes",
-                                          "busy_ms", "sectors_per_key")}
+                                          "sector_bound_ms", "sector_bytes",
+                                          "busy_ms", "sectors_per_key",
+                                          "sectors_per_position")}
                 for v, r in rec["variants"].items()}
+        if kname == "occ_gather":
+            kernels[-1].update({k: rec[k] for k in (
+                "sector_bound_ms", "sector_bytes", "sectors_per_position")})
     summary = {
         "kernels": kernels,
         "card": card,

@@ -12,19 +12,26 @@
 //     gather_occ_rows_blocked), which gathers host-sorted pointer groups
 //     from 2048-row windows staged in VMEM.
 // The two differ only in how rows reach VMEM. On Hopper both are one
-// gather: thread i loads its row straight from global memory.
+// gather straight from global memory, one 16-byte piece of a row per
+// lane.
 //
 // What bounds the row gather on an H100: per position one 4-byte read
-// (the position, coalesced, through the read-only path), one row read (16
-// bytes at W=4, one int4 load; 32 bytes at W=8, two int4 loads that fall
-// in one 32-byte sector) and one row write (consecutive threads write
-// consecutive rows, so the writes coalesce). At 10 Mbp the W=4 table is
-// 160 MB and the W=8 table 320 MB, far past the 50 MB L2: scattered
-// positions make the row reads random HBM sector reads, so the kernel is
-// bound by bytes moved (positions + rows read + rows written), and by
-// sector efficiency where the positions scatter. Sorted positions let
-// neighbouring threads share sectors; the TPU's window staging has no
-// counterpart here.
+// (the position, coalesced), one row read (16 bytes at W=4, 32 at W=8,
+// inside one 32-byte sector) and one row write. At 10 Mbp the W=4 table
+// is 160 MB and the W=8 table 320 MB, past the 50 MB L2: scattered
+// positions make the row reads random sector reads, which the card serves
+// at the same rate whether 16, 32 or 64 bytes of a piece are asked for
+// (psi_tpu_torch/tools/gather_sweep.py measures it), so the kernel is
+// bound by that rate and the streamed bytes. Sorted positions let
+// neighbouring lanes share sectors; the TPU's window staging has no
+// counterpart here. Of the designs the sweep timed, none was faster on
+// sorted positions, the row gather's own path (gather_occ_rows_blocked
+// sorts) at W = 4: consecutive rows a thread spread a warp instruction's
+// rows apart, four rows a thread strided by the block's width won 6% on
+// scattered positions and lost 3-6% on sorted ones, and streaming stores
+// changed nothing. At W = 8 a lane pair per row, against one thread
+// loading both halves, makes each load and store instruction ask for
+// every sector once, and was 5-6% faster in both orders.
 //
 // psi_occ_lf_pair is what _step_kernel's caller, backward_search_pallas,
 // does with the rows (take column c-1 of lo's and hi's row, add C[c]),
@@ -54,17 +61,22 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// One 16-byte piece of a row per lane: a row of W int32 takes W / 4
+// neighbouring lanes (one at W = 4, a lane pair at W = 8), each of which
+// loads the row's position and its own piece and stores it. A warp's
+// load instruction then asks for 32 / (W / 4) rows, each sector once, and
+// its store instruction writes 512 contiguous bytes.
 template <int W>
 __global__ void occ_gather_kernel(const int4* __restrict__ occ,
                                   const int32_t* __restrict__ pos,
                                   int4* __restrict__ rows, int m) {
-  constexpr int kVec = W / 4;  // int4 loads per row
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int kLanes = W / 4;  // lanes a row
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int64_t i = t / kLanes;  // the row
   if (i >= m) return;
-  const size_t src = static_cast<size_t>(__ldg(pos + i)) * kVec;
-  const size_t dst = static_cast<size_t>(i) * kVec;
-#pragma unroll
-  for (int v = 0; v < kVec; ++v) rows[dst + v] = __ldg(occ + src + v);
+  rows[t] = __ldg(occ + static_cast<size_t>(__ldg(pos + i)) * kLanes +
+                  t % kLanes);
 }
 
 template <int W>
@@ -95,7 +107,8 @@ extern "C" int psi_occ_gather(const void* occ, int w, const void* pos,
                               void* rows, int m, void* stream) {
   if (w != 4 && w != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (m > 0) {
-    const int grid = (m + kThreads - 1) / kThreads;
+    const int grid = static_cast<int>(
+        (static_cast<int64_t>(m) * (w / 4) + kThreads - 1) / kThreads);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* table = static_cast<const int4*>(occ);
     const auto* p = static_cast<const int32_t*>(pos);

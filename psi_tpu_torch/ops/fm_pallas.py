@@ -13,8 +13,8 @@ tensors and counting those launches in `.launches`, its plain PyTorch
 version for CPU tensors, and raising on any other device (neither falls
 back):
 
-  gather_occ_rows  psi_occ_gather   whole rows at positions, one thread
-                                    per row
+  gather_occ_rows  psi_occ_gather   whole rows at positions, a 16-byte
+                                    piece of a row per lane
   lf_pair          psi_occ_lf_pair  the step above for every key, a
                                     lane pair per key, one launch per step
 

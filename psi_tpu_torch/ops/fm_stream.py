@@ -291,6 +291,8 @@ def compact_children(r4lo: torch.Tensor, r4hi: torch.Tensor,
     m = parent.shape[0]
     lo = torch.empty(m, dtype=torch.int32, device=dev)
     hi = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return lo, hi
     _build.launch(
         "psi_compact", _COMPACT_ARGTYPES,
         r4lo.data_ptr(), r4hi.data_ptr(), r4lo.shape[1],

@@ -39,7 +39,7 @@ sectors and the 128-byte lines that the payload loads of a warp ask for
 per 32 items on this run's positions (each load instruction, once per
 distinct sector or line its active lanes touch), and writes everything
 to chiprun_out/record_layouts.json. Device times by CUDA events with a
-spin kernel queued first (chip_smoke.cuda_ms), median of ROUNDS
+spin kernel queued first (tools/timing.cuda_ms), median of ROUNDS
 interleaved rounds.
 """
 
@@ -48,7 +48,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -310,18 +309,6 @@ _RANK4 = {"T": ("rank4_t_1", "T", 1), "R8": ("rank4_r8_1", "R8", 1),
           "none": ("rank4_none_1", "none", 1)}
 
 
-def _compile(tmp: str) -> ctypes.CDLL:
-    from psi_tpu_torch import _build
-
-    src = os.path.join(tmp, "record_layouts.cu")
-    lib = os.path.join(tmp, "record_layouts.so")
-    with open(src, "w") as fh:
-        fh.write(_SOURCE)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
-                    src], check=True)
-    return ctypes.CDLL(lib)
-
-
 def _layouts(sarr) -> dict:
     """The candidate payloads on the card, from the port's payloadR (PC
     is the port's payloadC)."""
@@ -400,28 +387,35 @@ def _rank4_requests(layout, k, nbpad, pos) -> tuple[int, int]:
     return 0, 0
 
 
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("record_layouts: no CUDA device is visible", file=sys.stderr)
         return 2
-    repo = os.getcwd()
-    sys.path.insert(0, repo)
-    import chip_smoke as cs
     from psi_tpu_torch.io import load_graph
     from psi_tpu_torch.ops import fm_fused, fm_stream
     from psi_tpu_torch.seed_finder import SeedFinder
+    from psi_tpu_torch.tools import bacterial as cell
+    from psi_tpu_torch.tools.timing import build_sweep, card_line, cuda_ms
 
-    card = cs.card_line()
+    repo = os.getcwd()
+
+    card = card_line()
     print(f"[card] {card}", flush=True)
     with tempfile.TemporaryDirectory(prefix="record_layouts_") as tmp:
         os.environ["HOME"] = tmp
-        lib = _compile(tmp)
-        gfa, fastq = cs.make_data(tmp, cs.REF_LEN, cs.N_CHUNKS * cs.CHUNK)
-        finder = SeedFinder(load_graph(gfa), cs.SEED_LEN)
-        finder.create_path_index(cs.N_PATHS, patched=False)
-        _, _, index = cs.first_chunk_index(finder, fastq, cs.CHUNK)
+        lib = build_sweep(tmp, "record_layouts", _SOURCE)
+        gfa, fastq = cell.make_data(tmp, cell.REF_LEN,
+                                    cell.N_CHUNKS * cell.CHUNK)
+        finder = SeedFinder(load_graph(gfa), cell.SEED_LEN)
+        finder.create_path_index(cell.N_PATHS, patched=False)
+        _, _, index = cell.first_chunk_index(finder, fastq, cell.CHUNK)
         sarr = finder._get_stream_arrays()
         prep = index._onpath_prep[2]
         levels, npad = prep.parents.shape
@@ -445,7 +439,7 @@ def main() -> int:
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                            + [ctypes.c_void_p] * nargs
                            + [ctypes.c_int, ctypes.c_void_p])
-            return lambda *a: cs.require(fn(*a) == 0, f"{entry} failed")
+            return lambda *a: _require(fn(*a) == 0, f"{entry} failed")
 
         # as chip_smoke times them: the trie levels chained through two
         # buffer pairs (trie_fused), rank4's outputs in two buffers
@@ -497,8 +491,8 @@ def main() -> int:
             same = all(torch.equal(a, b) for (a, b) in
                        zip([t for g in got for t in g],
                            [t for f in fronts[1:] for t in f]))
-            cs.require(same or lay == "none",
-                       f"{key} differs from its plain version")
+            _require(same or lay == "none",
+                     f"{key} differs from its plain version")
             runs[key] = trie_run(entry, pays[lay], None)
             req = _sum(_trie_requests(lay, k, nbpad, chs[j],
                                       fronts[j][0][par[j].long()],
@@ -514,8 +508,8 @@ def main() -> int:
                 got = []
                 rank4_run(entry, pays[lay], positions, got)()
                 same = all(torch.equal(a, b) for a, b in zip(got, want))
-                cs.require(same or lay == "none",
-                           f"{key} differs from its plain version")
+                _require(same or lay == "none",
+                         f"{key} differs from its plain version")
                 runs[key] = rank4_run(entry, pays[lay], positions, None)
                 req = _sum(_rank4_requests(lay, k, nbpad, p)
                            for p in positions)
@@ -529,7 +523,7 @@ def main() -> int:
         for _ in range(ROUNDS):
             for key, run in runs.items():
                 result[key]["us"].append(
-                    1e3 * cs.cuda_ms(run, REPS) / result[key]["per_run"])
+                    1e3 * cuda_ms(run, REPS) / result[key]["per_run"])
         for key, rec in result.items():
             rec["median_us"] = sorted(rec["us"])[len(rec["us"]) // 2]
             print(f"[layouts] {key}: {rec['median_us']:.3f} us/launch "

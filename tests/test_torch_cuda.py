@@ -252,6 +252,77 @@ def test_trie_level_and_rank4_kernels_at_edges(index, dev, odd):
         fm_stream.rank4_stream(arr, pos[1:])
 
 
+def test_compact_kernel_at_edges(index, dev):
+    """compact over rank tables of 3001 parents: every parent at every
+    char 1..4 (c-major, parents 0 and Mprev - 1 included), cut to M = 0,
+    1, 3, 5 and counts that end inside a warp or a block, against its
+    plain version and the host FM index, one launch each and none for
+    M = 0. The kernel loads the schedule one item a thread, so a view
+    that starts at an odd item ([1:]) is taken as it is; schedules of two
+    lengths are refused."""
+    fm, _, _ = index
+    arr = fm_stream.build_stream_arrays(fm, dev)
+    rng = np.random.RandomState(6)
+    mprev = 3001
+    lo = rng.randint(0, fm.size + 1, size=mprev)
+    hi = np.minimum(lo + rng.choice([0, 1, 31, 32, 900], size=mprev), fm.size)
+    lo[0], hi[-1] = 0, fm.size
+    lo_t, hi_t = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                  for a in (lo, hi))
+    r4 = fm_stream.rank4_pair_stream(arr, lo_t, hi_t)
+    parent = torch.arange(mprev, dtype=torch.int32, device=dev).repeat(4)
+    char = torch.arange(1, 5, dtype=torch.int32,
+                        device=dev).repeat_interleave(mprev)
+    for m in (0, 1, 3, 5, 4098, 4 * mprev - 1, 4 * mprev):
+        n0 = fm_stream.compact_children.launches
+        got = fm_stream.compact_children(*r4, parent[:m], char[:m], arr.C)
+        torch.cuda.synchronize()
+        assert fm_stream.compact_children.launches == n0 + (m > 0)
+        want = fm_stream.compact_plain(*r4, parent[:m], char[:m], arr.C)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for c in range(1, 5):
+        for p in (0, mprev - 1):
+            i = (c - 1) * mprev + p
+            assert int(got[0][i]) == fm.C[c] + fm.rank(c, int(lo[p]))
+            assert int(got[1][i]) == fm.C[c] + fm.rank(c, int(hi[p]))
+    got = fm_stream.compact_children(*r4, parent[1:], char[1:], arr.C)
+    want = fm_stream.compact_plain(*r4, parent[1:], char[1:], arr.C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match=r"must be \[M\]"):
+        fm_stream.compact_children(*r4, parent, char[:-4], arr.C)
+
+
+@pytest.mark.parametrize("order", ["scattered", "sorted"])
+@pytest.mark.parametrize("width", [4, 8])
+def test_occ_gather_kernel_at_edges(index, dev, width, order):
+    """The row gather at positions 0 and R - 1, repeated, and random
+    ones with duplicates, for M = 0, 1, 2, 3 and a large odd M, one
+    launch each and none for M = 0; positions from a view that starts at
+    an odd item ([1:]) are taken as they are (one position a lane;
+    test_occ_gather_rejects_bad_inputs refuses a misaligned table)."""
+    fm, _, _ = index
+    occ8 = torch.from_numpy(fm_pallas.occ_dense_padded(fm)).to(dev)
+    occ = occ8 if width == 8 else occ8[:, :4].contiguous()
+    R = occ.shape[0]
+    rng = np.random.RandomState(10 + width)
+    pos = rng.randint(0, R, size=20001)
+    pos[:6] = (0, R - 1, R - 1, 0, 0, R - 1)
+    pos[6:1006] = pos[6]                        # one row 1000 times
+    if order == "sorted":
+        pos = np.sort(pos)
+    pos = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    for m in (0, 1, 2, 3, len(pos)):
+        n0 = fm_pallas.gather_occ_rows.launches
+        got = fm_pallas.gather_occ_rows(occ, pos[:m])
+        torch.cuda.synchronize()
+        assert fm_pallas.gather_occ_rows.launches == n0 + (m > 0)
+        assert torch.equal(got, fm_pallas.gather_occ_rows_plain(occ, pos[:m]))
+    assert torch.equal(got[pos == R - 1], occ[R - 1].expand(
+        int((pos == R - 1).sum()), width))
+    assert torch.equal(fm_pallas.gather_occ_rows(occ, pos[1:]),
+                       fm_pallas.gather_occ_rows_plain(occ, pos[1:]))
+
+
 @pytest.mark.parametrize("width", [4, 8])
 def test_occ_lf_pair_kernel_matches_plain(index, dev, width):
     """lf_pair on the dense and the padded table against lf_pair_plain at

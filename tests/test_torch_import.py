@@ -25,18 +25,24 @@ PKG = REPO / "psi_tpu_torch"
 
 def test_package_never_imports_jax():
     """No module of the port, nor chip_smoke.py, imports jax or psi_tpu
-    (the reference): the port keeps its own copies."""
+    (the reference): the port keeps its own copies. No module of the
+    package imports chip_smoke.py either: what chip_smoke.py shares with
+    the sweep tools lives in psi_tpu_torch/tools."""
     for path in [*sorted(PKG.rglob("*.py")), REPO / "chip_smoke.py"]:
+        in_pkg = path.parent != REPO
+        banned = ("jax", "psi_tpu") + (("chip_smoke",) if in_pkg else ())
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             else:
+                # nor does a module of the package edit sys.path
+                assert not (in_pkg and isinstance(node, ast.Attribute)
+                            and ast.unparse(node) == "sys.path"), path
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "psi_tpu"), \
-                    f"{path}: {name}"
+                assert name.split(".")[0] not in banned, f"{path}: {name}"
 
 
 _JAX_BLOCKED_RUN = textwrap.dedent("""
@@ -81,6 +87,39 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     assert not loaded, loaded
     print("ok", len(on), len(off))
 """)
+
+
+_TOOL_IMPORT = textwrap.dedent("""
+    import sys
+    for name in ("jax", "psi_tpu", "chip_smoke"):
+        sys.modules[name] = None     # any import of these now raises
+    import importlib
+    mod = importlib.import_module(sys.argv[1])
+    missing = [f for f in sys.argv[2:] if not callable(getattr(mod, f))]
+    assert not missing, missing
+    print("ok")
+""")
+
+
+@pytest.mark.parametrize("module,names", [
+    ("psi_tpu_torch.tools.timing",
+     ["cuda_ms", "bracketed_ms", "card_line", "r4_sectors", "row_sectors",
+      "build_sweep"]),
+    ("psi_tpu_torch.tools.bacterial",
+     ["write_gfa", "write_reads", "make_data", "first_chunk_index",
+      "lf_steps"]),
+    ("psi_tpu_torch.tools.gather_sweep", ["main"]),
+    ("psi_tpu_torch.tools.record_layouts", ["main"]),
+])
+def test_tools_import_alone(module, names):
+    """The timing helpers, the bacterial cell and both sweep tools import
+    and have their functions with jax, psi_tpu and chip_smoke blocked."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_runs_with_jax_blocked():
