@@ -61,23 +61,46 @@ exits non-zero and prints no result):
     it on the cpu (and the scalar `seeds_on_paths_seq` on the first
     1,000 reads), with its launches (one LF step per cursor step) and
     time;
- 7. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
+ 7. [offpath] the off-path traversal on chunk 1 (the cell's uncovered
+    loci): the WalkTree probed on the host (NumPy) and on the card equal
+    each other; `traverse_device` on the card, its k steps run under
+    torch.cuda.set_sync_debug_mode("error") with the launch counters set
+    to 0 just before and read just after (range_refine once per step and
+    nothing else), gives the probe's survivors, order and TraverserStats;
+    range_refine against its plain version on every step's inputs of
+    that run, over the whole cap, with device, enqueued and plain times,
+    its bound, and the device operations of one plain step; the time of
+    each off-path form (host probe, device probe, device traversal); then
+    `traverse_device_approx` (m = 1, cap doubled until it fits) on the
+    card equal to it on the CPU, and range_refine4 against its plain
+    version on the final attempt's inputs, timed the same way;
+ 8. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level, and nothing else;
- 8. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
+ 9. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
     only the LF-step kernel, once per chunk and LF step, and a lexsorted
-    hit stream byte-identical to phase 7's;
- 9. the same command with --device cpu (the plain versions): the
+    hit stream byte-identical to phase 8's;
+10. [cli-trav] the same command with PSI_TRAV_CACHE=0 (the device
+    traversal every chunk): only trie_level and range_refine (k launches
+    per chunk and attempt), and a lexsorted hit stream byte-identical to
+    phase 8's;
+11. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
-10. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
+12. [cli-mismatch] --mismatches 1 on cuda over the first chunk's 100,000
+    reads: only trie_level (one chunk's levels) and range_refine4 (k per
+    attempt), with its hits and rates; then cuda and cpu on the first
+    5,000 reads give byte-identical lexsorted hit streams;
+13. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
 
-Then, on lines of their own, the kernels JSON and the card line, and last
+Then, on lines of their own, the run's total seconds, the kernels JSON
+and the card line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -95,6 +118,7 @@ from psi_tpu_torch.tools.timing import (  # noqa: E402
     row_sectors)
 
 N_SAMPLED_KEYS = 10_000
+N_MISMATCH_READS = 5_000   # reads of the --mismatches cuda = cpu check
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
 ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
@@ -417,6 +441,13 @@ KERNELS = {
                     "psi_tpu_torch/csrc/occ_gather.cu", [10, 11],
                     ["psi_tpu/ops/fm_pallas.py:31",
                      "psi_tpu/ops/fm_pallas.py:200"]),
+    # no TPU kernel: psi_tpu's _range_refine is plain XLA
+    "range_refine": (("traverse", "range_refine"),
+                     "psi_tpu_torch/csrc/range_refine.cu", [],
+                     ["psi_tpu/ops/traverse.py:230"]),
+    "range_refine4": (("traverse", "range_refine4"),
+                      "psi_tpu_torch/csrc/range_refine.cu", [],
+                      ["psi_tpu/ops/traverse.py:230"]),
 }
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = {
@@ -439,6 +470,12 @@ LIBRARY = {
     "occ_lf_pair": "none: a gather of one word of lo's row and one of hi's, "
                    "column chosen per key, and C[c] added; no single call "
                    "gathers by row and column and adds",
+    "range_refine": "none: per state two occ-row and plane-word gathers, "
+                    "four masked popcounts at lo and at hi, a prefix sum "
+                    "over the chars and a pick by the state's char; torch "
+                    "has no popcount operator",
+    "range_refine4": "none: range_refine's counts for all four chars; torch "
+                     "has no popcount operator",
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 #: entry points that no route of the port runs (backward_search_sorted
@@ -1054,10 +1091,223 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict, dict]:
     return rec, lf_rec, facts
 
 
-# --- phases 7 to 9: the CLI ----------------------------------------------------
+# --- phase 7: the off-path traversal ----------------------------------------
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Within the block, `module.name` is a recorder that keeps each
+    call's arguments and calls the wrapper. The wrapper's body counts
+    its launches on the module attribute, so the recorder carries the
+    count and hands it back at the end."""
+    orig = getattr(module, name)
+    calls = []
+
+    def recorder(*args):
+        calls.append(args)
+        return orig(*args)
+
+    recorder.launches = orig.launches
+    setattr(module, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+        orig.launches = recorder.launches
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host milliseconds of fn(), which ends in a download (so in a
+    synchronize), after one warm-up run."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def refine_work(seeds, depth, lo, hi, c):
+    """lo, hi and c read, lo' and hi' written; the seeds index (k depths
+    of occ rows and plane words, a few MB) stays in L2 and is not
+    counted. Operations: two blocks' four masked popcounts and the
+    prefix sum, counted from the kernel source."""
+    return nbytes(lo, hi, c) + nbytes(lo, hi), 40 * lo.numel()
+
+
+def refine4_work(seeds, depth, lo, hi):
+    """lo and hi read, the four (lo', hi') pairs written."""
+    return nbytes(lo, hi) * 5, 40 * lo.numel()
+
+
+def approx_packed(finder, g, sa, k: int, device):
+    """traverse_device_packed with one mismatch on `device`, the cap
+    doubled from the route's until it does not overflow, as the finder's
+    collect does: (packed int64 vector on the host, final cap, attempts)."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+
+    sn, so = finder._get_loci_np()
+    n = len(sn)
+    cap = max(1 << 15, 1 << (n - 1).bit_length())
+    attempts = 0
+    while True:
+        attempts += 1
+        starts = np.zeros((2, cap), dtype=np.int32)
+        starts[0, :n], starts[1, :n] = sn, so
+        snd, sod = (torch.from_numpy(a).to(device) for a in starts)
+        packed = trav.traverse_device_packed(g, sa, snd, sod, n, k, cap,
+                                             1).cpu().numpy()
+        if not packed[3 * cap + 1]:
+            return packed, cap, attempts
+        cap *= 2
+
+
+def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
+    """The off-path traversal on chunk 1: the WalkTree probes, the exact
+    and the mismatch-tolerant device traversals, and the range-refine
+    kernels on their inputs. Returns the records of range_refine and
+    range_refine4 and the phase's facts."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+
+    k = finder.seed_len
+    dev = finder.device
+    keys = index.sorted_keys
+    n = len(finder.starting_loci)
+    t_phase = t0 = time.monotonic()
+    dtree = finder._get_trav_tree()
+    tree = finder._trav_tree[1]
+    require(dtree is not None, "the cell's WalkTree exceeds its cap")
+    host = trav.walks_match(tree, keys)
+    probe = trav.walks_match_device(dtree, keys)
+    require(all(np.array_equal(a, b) for a, b in zip(host, probe)),
+            "the device WalkTree probe differs from the host probe")
+    phase("offpath", f"{n} loci, WalkTree of {tree.n_nodes} nodes (built "
+          f"and uploaded in {time.monotonic() - t0:.2f} s); {len(host[0])} "
+          f"surviving states; device probe equal to the host probe")
+
+    # the exact traversal, its k steps under sync debug mode "error"
+    g = finder._get_graph_arrays()
+    sa = trav.seeds_to_device(index, dev)
+    cap = max(1 << 15, 1 << (n - 1).bit_length())
+    while True:
+        sn_d, so_d = finder._get_loci_device(cap)
+        torch.cuda.synchronize()
+        reset_counters()
+        with recorded(trav, "range_refine") as calls:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got = read_counters()
+        require(got == {**ZERO_COUNTS, "range_refine": k},
+                f"traverse_device launched {got}, expected {k} range_refine")
+        li, lo, hi, nu, ov, ts = (a.cpu().numpy() for a in out)
+        if not ov:
+            break
+        cap *= 2
+    nu = int(nu)
+    require(np.array_equal(li[:nu], host[0])
+            and np.array_equal(lo[:nu], host[1])
+            and np.array_equal(hi[:nu], host[2])
+            and tuple(int(v) for v in ts) == host[3:],
+            "traverse_device differs from the WalkTree probe")
+    phase("offpath", f"traverse_device at cap {cap}: {nu} survivors, order "
+          f"and TraverserStats {tuple(int(v) for v in ts)} equal to the "
+          f"probe's; {k} range_refine launches, no host sync in its steps")
+
+    err = max(max(max_abs_err(a, b) for a, b in zip(
+        trav.range_refine(*c), trav.range_refine_plain(*c))) for c in calls)
+    require(err == 0, f"range_refine differs from its plain version by {err}")
+    rec = measure(
+        "range_refine", lambda: [trav.range_refine(*c) for c in calls],
+        lambda: [trav.range_refine_plain(*c) for c in calls], k,
+        [refine_work(*c) for c in calls], err,
+        f"{cap} slots x {k} steps of traverse_device", plain_reps=1,
+        tag="offpath")
+    rec["plain_ops_per_step"] = device_ops(
+        lambda: trav.range_refine_plain(*calls[0]))
+    rec["launches_per_traversal"] = k
+
+    # the three off-path forms of one chunk, each as the route pays it
+    sn_d, so_d = finder._get_loci_device(cap)
+    forms = {
+        "host probe": lambda: trav.walks_match(tree, keys),
+        "device probe": lambda: trav.walks_match_device(dtree, keys),
+        "device traversal": lambda: trav.traverse_device_packed(
+            g, trav.seeds_to_device(index, dev), sn_d, so_d, n, k,
+            cap).cpu(),
+    }
+    form_ms = {name: wall_ms(fn, 3) for name, fn in forms.items()}
+    busy = {name: busy_ms(fn, 1) for name, fn in forms.items()
+            if name != "host probe"}
+    cols_ms = wall_ms(lambda: trav.traverse_columnar_from_states(
+        index, finder.starting_loci, *host[:3], k), 3)
+    for name, t in form_ms.items():
+        phase("offpath", f"{name}: {t:.3f} ms/chunk (host clock)"
+              + (f", device busy {busy[name]:.3f} ms" if name in busy
+                 else ""))
+    phase("offpath", f"hit columns from the survivors: {cols_ms:.3f} ms; "
+          f"range_refine plain: {rec['plain_ops_per_step']} device "
+          f"operations a step")
+
+    # the mismatch-tolerant traversal, m = 1, on the card and on the CPU
+    reset_counters()
+    with recorded(trav, "range_refine4") as calls4:
+        t0 = time.monotonic()
+        packed, cap4, attempts = approx_packed(finder, g, sa, k, dev)
+        approx_s = time.monotonic() - t0
+        got = read_counters()
+    require(got == {**ZERO_COUNTS, "range_refine4": k * attempts},
+            f"traverse_device_approx launched {got}, expected "
+            f"{k * attempts} range_refine4")
+    t0 = time.monotonic()
+    cpu_packed, cpu_cap, _ = approx_packed(
+        finder, trav.graph_to_device(finder.graph, "cpu"),
+        trav.seeds_to_device(index, "cpu"), k, "cpu")
+    cpu_s = time.monotonic() - t0
+    require(cpu_cap == cap4 and np.array_equal(packed, cpu_packed),
+            "traverse_device_approx on cuda differs from it on the cpu")
+    last = calls4[-k:]
+    err4 = max(max(max_abs_err(a, b) for a, b in zip(
+        trav.range_refine4(*c), trav.range_refine4_plain(*c))) for c in last)
+    require(err4 == 0, f"range_refine4 differs from its plain version by "
+            f"{err4}")
+    rec4 = measure(
+        "range_refine4", lambda: [trav.range_refine4(*c) for c in last],
+        lambda: [trav.range_refine4_plain(*c) for c in last], k,
+        [refine4_work(*c) for c in last], err4,
+        f"{cap4} slots x {k} steps of traverse_device_approx (m=1)",
+        plain_reps=1, tag="offpath")
+    # operations a step do not depend on the count; the profiler dropped
+    # most of them at 2^20 slots, so count on the exact traversal's step
+    rec4["plain_ops_per_step"] = device_ops(
+        lambda: trav.range_refine4_plain(*calls[0][:4]))
+    rec4["launches_per_traversal"] = k * attempts
+    n_approx = int(packed[3 * cap4])
+    phase("offpath", f"traverse_device_approx (m=1): cap {cap4} after "
+          f"{attempts} attempts, {n_approx} survivors, {approx_s:.3f} s on "
+          f"cuda ({k * attempts} range_refine4 launches), {cpu_s:.3f} s on "
+          f"cpu, equal; range_refine4 plain: {rec4['plain_ops_per_step']} "
+          f"device operations a step; phase {time.monotonic() - t_phase:.1f} "
+          f"s")
+    facts = {"loci": n, "tree_nodes": tree.n_nodes, "survivors": nu,
+             "cap": cap, "form_ms_per_chunk": form_ms,
+             "form_busy_ms": busy, "columns_ms": cols_ms,
+             "approx": {"cap": cap4, "attempts": attempts,
+                        "survivors": n_approx, "cuda_s": approx_s,
+                        "cpu_s": cpu_s}}
+    return rec, rec4, facts
+
+
+# --- phases 8 to 12: the CLI ---------------------------------------------------
 
 def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
-            tag: str = ""):
+            tag: str = "", extra: tuple = ()):
     import numpy as np
 
     from psi_tpu_torch import cli
@@ -1067,7 +1317,7 @@ def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
     t0 = time.monotonic()
     rc = cli.main([gfa, "-f", fastq, "-l", str(SEED_LEN), "-n",
                    str(N_PATHS), "-P", "-c", str(chunk), "--device", device,
-                   "-o", out, "--report", report, "-q", "-Q"])
+                   "-o", out, "--report", report, "-q", "-Q", *extra])
     wall = time.monotonic() - t0
     require(rc == 0, f"cli --device {device} returned {rc}")
     with open(report) as fh:
@@ -1075,6 +1325,24 @@ def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
     hits = np.fromfile(out, dtype="<i8").reshape(-1, 4)
     hits = hits[np.lexsort(hits.T[::-1])]
     return hits, rep, wall
+
+
+@contextlib.contextmanager
+def env(name: str, value: str):
+    """The variable set around the block only."""
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        del os.environ[name]
+
+
+def head_fastq(src: str, dst: str, n: int) -> str:
+    """The first n records of a four-line FASTQ, written to dst."""
+    with open(src, "rb") as fin, open(dst, "wb") as fout:
+        for _ in range(4 * n):
+            fout.write(fin.readline())
+    return dst
 
 
 def summarize(rep: dict, device: str, wall: float) -> dict:
@@ -1105,7 +1373,7 @@ def summarize(rep: dict, device: str, wall: float) -> dict:
     return res
 
 
-# --- phase 7: sampled counts against the host FM index ----------------------------
+# --- phase 13: sampled counts against the host FM index ---------------------------
 
 def check_sampled_counts(finder, uniq, n: int) -> int:
     import numpy as np
@@ -1141,6 +1409,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=CHUNK,
                     help=f"reads per chunk ({N_CHUNKS} chunks are made)")
     args = ap.parse_args(argv)
+    t_start = time.monotonic()
 
     import torch
 
@@ -1190,6 +1459,8 @@ def main(argv=None) -> int:
         (records["occ_gather"], records["occ_lf_pair"],
          extra["gather"]) = gather_phase(finder, reads, index)
         launches["occ_gather"] = extra["gather"]["blocked_launches"]
+        (records["range_refine"], records["range_refine4"],
+         extra["offpath"]) = offpath_phase(finder, index)
         extra.update(profile_query(finder, seeds, index))
 
         reset_counters()
@@ -1209,14 +1480,11 @@ def main(argv=None) -> int:
 
         # the gather route end to end: PSI_STREAM=0, the variable psi_tpu
         # reads, set around this run only
-        os.environ["PSI_STREAM"] = "0"
-        try:
+        with env("PSI_STREAM", "0"):
             reset_counters()
             hits_g, rep_g, wall = run_cli(gfa, fastq, tmp, "cuda", args.chunk,
                                           tag="_gather")
             gather_launches = read_counters()
-        finally:
-            del os.environ["PSI_STREAM"]
         gather_res = summarize(rep_g, "gather", wall)
         steps = extra["gather"]["steps"]
         want = {**ZERO_COUNTS, "occ_lf_pair": len(rep_g["chunks"]) * steps}
@@ -1236,6 +1504,33 @@ def main(argv=None) -> int:
               f"{cuda_res.get('hits_per_s', 0):.1f})")
         launches["occ_lf_pair"] = gather_launches["occ_lf_pair"]
 
+        # the device traversal every chunk: PSI_TRAV_CACHE=0
+        with env("PSI_TRAV_CACHE", "0"):
+            reset_counters()
+            hits_t, rep_t, wall = run_cli(gfa, fastq, tmp, "cuda", args.chunk,
+                                          tag="_trav")
+            trav_launches = read_counters()
+        trav_res = summarize(rep_t, "trav", wall)
+        n_trav = len(rep_t["chunks"])
+        steps = trav_launches["range_refine"]
+        require(trav_launches == {**ZERO_COUNTS,
+                                  "trie_level": n_trav * extra["levels"],
+                                  "range_refine": steps}
+                and steps >= n_trav * SEED_LEN and steps % SEED_LEN == 0,
+                f"the PSI_TRAV_CACHE=0 CLI run launched {trav_launches}, "
+                f"expected {n_trav * extra['levels']} trie_level and a "
+                f"multiple of {SEED_LEN} range_refine (at least "
+                f"{n_trav * SEED_LEN})")
+        require(hits_t.tobytes() == hits_cuda.tobytes(),
+                f"device-traversal hit stream differs from the WalkTree "
+                f"route's: {len(hits_t)} vs {len(hits_cuda)} hits")
+        phase("cli-trav", f"launches {trav_launches}; lexsorted hit stream "
+              f"identical to the WalkTree route's ({len(hits_t)} hits); "
+              f"off-path {sum(c['offpath_s'] for c in rep_t['chunks']):.4f} "
+              f"s over {n_trav} chunks (WalkTree route "
+              f"{sum(c['offpath_s'] for c in rep_cuda['chunks']):.4f})")
+        launches["range_refine"] = steps
+
         hits_cpu, rep_cpu, wall = run_cli(gfa, fastq, tmp, "cpu", args.chunk)
         summarize(rep_cpu, "cpu", wall)
         require(hits_cuda.shape == hits_cpu.shape
@@ -1244,6 +1539,57 @@ def main(argv=None) -> int:
                 f"cpu {len(hits_cpu)} hits")
         phase("cli-cpu", f"lexsorted hit streams identical "
               f"({len(hits_cuda)} hits)")
+
+        # --mismatches 1 on one full chunk, then cuda = cpu on a small one
+        t_mm = time.monotonic()
+        mm = ("--mismatches", "1")
+        one = head_fastq(fastq, os.path.join(tmp, "chunk1.fastq"), args.chunk)
+        reset_counters()
+        hits_m, rep_m, wall = run_cli(gfa, one, tmp, "cuda", args.chunk,
+                                      tag="_mm1", extra=mm)
+        mm_launches = read_counters()
+        (c1,) = rep_m["chunks"]
+        steps4 = mm_launches["range_refine4"]
+        require(mm_launches == {**ZERO_COUNTS,
+                                "trie_level": extra["levels"],
+                                "range_refine4": steps4}
+                and steps4 >= SEED_LEN and steps4 % SEED_LEN == 0,
+                f"the --mismatches 1 CLI run launched {mm_launches}")
+        require(c1["hits_off"] > 0 and len(hits_m) > len(
+            hits_cuda[hits_cuda[:, 2] < args.chunk]),
+                "--mismatches 1 found no more hits than exact matching")
+        mm_res = {"reads": c1["reads"], "keys": c1["keys"],
+                  "hits_on": c1["hits_on"], "hits_off": c1["hits_off"],
+                  "query_s": c1["query_s"], "onpath_s": c1["onpath_s"],
+                  "offpath_s": c1["offpath_s"], "prepare_s": c1["prepare_s"],
+                  "produce_s": c1["produce_s"], "wall_s": wall,
+                  "kmer_queries_per_s": c1["keys"] / c1["query_s"],
+                  "hits_per_s": len(hits_m) / c1["query_s"],
+                  "launches": mm_launches}
+        phase("cli-mismatch", f"{c1['reads']} reads, {c1['keys']} keys: "
+              f"{len(hits_m)} hits ({c1['hits_on']} on path, "
+              f"{c1['hits_off']} off path); query {c1['query_s']:.3f} s "
+              f"(on-path {c1['onpath_s']:.3f}, off-path "
+              f"{c1['offpath_s']:.3f}), trie plan {c1['prepare_s']:.3f} s, "
+              f"producer {c1['produce_s']:.3f} s, wall {wall:.1f} s: "
+              f"{mm_res['kmer_queries_per_s']:.1f} kmer-queries/s, "
+              f"{mm_res['hits_per_s']:.1f} hits/s; launches {mm_launches}")
+        launches["range_refine4"] = steps4
+        small = head_fastq(fastq, os.path.join(tmp, "small.fastq"),
+                           N_MISMATCH_READS)
+        mm_small = {device: run_cli(gfa, small, tmp, device, args.chunk,
+                                    tag="_mm1_small", extra=mm)
+                    for device in ("cuda", "cpu")}
+        (hm_cuda, _, w_cuda), (hm_cpu, _, w_cpu) = mm_small.values()
+        require(len(hm_cuda) > 0 and hm_cuda.tobytes() == hm_cpu.tobytes(),
+                f"--mismatches 1 on {N_MISMATCH_READS} reads: cuda "
+                f"{len(hm_cuda)} vs cpu {len(hm_cpu)} hits")
+        phase("cli-mismatch", f"first {N_MISMATCH_READS} reads: lexsorted hit "
+              f"streams of cuda ({w_cuda:.1f} s) and cpu ({w_cpu:.1f} s) "
+              f"identical ({len(hm_cuda)} hits); phase "
+              f"{time.monotonic() - t_mm:.1f} s")
+        mm_res["small"] = {"reads": N_MISMATCH_READS, "hits": len(hm_cuda),
+                           "cuda_wall_s": w_cuda, "cpu_wall_s": w_cpu}
 
         uniq = index._onpath_prep[0]
         present = check_sampled_counts(finder, uniq, N_SAMPLED_KEYS)
@@ -1261,7 +1607,11 @@ def main(argv=None) -> int:
              "rank_lf_pair": "backward_search_sorted, chunk 1",
              "occ_gather": "gather_occ_rows_blocked, one call",
              "occ_lf_pair": f"psikt CLI with PSI_STREAM=0 (the gather "
-                            f"route), {len(rep_g['chunks'])} chunks"}
+                            f"route), {len(rep_g['chunks'])} chunks",
+             "range_refine": f"psikt CLI with PSI_TRAV_CACHE=0 (the device "
+                             f"traversal), {n_trav} chunks",
+             "range_refine4": "psikt CLI with --mismatches 1, one chunk of "
+                              f"{args.chunk} reads"}
     kernels = []
     for kname, (_, source, rows, replaces) in KERNELS.items():
         require(kname in OFF_PATH or launches[kname] > 0,
@@ -1313,6 +1663,9 @@ def main(argv=None) -> int:
         if kname == "occ_gather":
             kernels[-1].update({k: rec[k] for k in (
                 "sector_bound_ms", "sector_bytes", "sectors_per_position")})
+        if kname in ("range_refine", "range_refine4"):
+            kernels[-1].update({k: rec[k] for k in (
+                "plain_ops_per_step", "launches_per_traversal")})
     summary = {
         "kernels": kernels,
         "card": card,
@@ -1320,12 +1673,18 @@ def main(argv=None) -> int:
         "sustained": {k: v for k, v in cuda_res.items() if k != "chunks"},
         "sustained_gather": {k: v for k, v in gather_res.items()
                              if k != "chunks"},
+        "sustained_trav": {k: v for k, v in trav_res.items()
+                           if k != "chunks"},
+        "mismatch": mm_res,
+        "total_s": time.monotonic() - t_start,
     }
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump({**summary, "chunks_cuda": cuda_res["chunks"],
-                   "chunks_gather": gather_res["chunks"]}, fh, indent=2)
+                   "chunks_gather": gather_res["chunks"],
+                   "chunks_trav": trav_res["chunks"]}, fh, indent=2)
+    phase("total", f"{summary['total_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -97,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument(
         "--mismatches", type=int, default=0,
-        help="allowed mismatches per seed (not ported yet: must be 0)",
+        help="allowed mismatches per seed (extension: the reference "
+        "declares but never implements approximate matching)",
     )
     p.add_argument(
         "--device", choices=CHOICES, default="cuda",

@@ -1,0 +1,140 @@
+// Range refine over the chunk's seeds index: the rank step of the
+// off-path frontier traversal (ops/traverse.py).
+//   psi_range_refine   [lo, hi) of each state narrowed by its char c
+//                      (traverse_device, one launch per step);
+//   psi_range_refine4  [lo, hi) narrowed by each char 0..3, written as
+//                      [N, 4] pairs (traverse_device_approx, one launch
+//                      per step).
+//
+// Counterpart of psi_tpu/ops/traverse.py::_range_refine (:230), which is
+// plain XLA there, not a Pallas kernel. The port has a kernel for it
+// because torch has no popcount operator: the plain PyTorch version
+// (range_refine_plain) spends some tens of device operations per step on
+// the SWAR popcounts, gathers and prefix sums that one thread per state
+// does here.
+//
+// Per depth d the seeds index holds, for every 32-key block b,
+//   occ[d, b]    int32 x 4  the count of each char in keys [0, 32 b)
+//   planes[d, b] int32 x 2  bit i of word p is bit p of the depth-d char
+//                           of key 32 b + i
+// so #(char c in keys [0, i)) = occ[d, i/32][c] + popcount(match_c &
+// ((1 << i%32) - 1)). One thread per state reads lo, hi (and c), loads
+// the occ row (one 16-byte load) and the plane pair (one 8-byte load) of
+// lo's block and of hi's block, and forms the four counts at each end.
+// The mask is computed in uint32: psi_tpu's int32 `(1 << 31) - 1` relies
+// on wrap-around, which is undefined for a signed int in C++. The new
+// range of char c starts after the keys in [lo, hi) whose char is below
+// c (the keys are sorted, so at each depth a range's children are
+// contiguous, in char order).
+//
+// Every slot of the state vectors is computed, padding slots included, as
+// the plain version computes them, so the two are bit-equal over the whole
+// array. Neither lo <= hi in [0, V] nor c in 0..3 is checked on the
+// device (psi_tpu's contract); the wrappers check shapes, types,
+// contiguity, alignment and the depth.
+//
+// What bounds it on an H100: a launch moves 20 bytes per state (lo, hi,
+// c in; lo', hi' out), 16 + 32 in the four-char form: a few hundred
+// kilobytes at the traversal's 2^15-slot cap, well under a microsecond at
+// 3.35 TB/s. The seeds index (k depths x ~15.6 K blocks x 24 bytes, ~7.5
+// MB for a 100 K-read chunk) stays in the 50 MB L2. So a launch is bound
+// by its launch and drain, not by bytes or operations.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// Count of each char 0..3 among the depth's keys [0, i).
+__device__ __forceinline__ int4 counts_at(const int4* __restrict__ occ_d,
+                                          const int2* __restrict__ planes_d,
+                                          int32_t i) {
+  const int b = i >> 5;
+  const int4 base = __ldg(occ_d + b);
+  const int2 pw = __ldg(planes_d + b);
+  const uint32_t p0 = static_cast<uint32_t>(pw.x);
+  const uint32_t p1 = static_cast<uint32_t>(pw.y);
+  const uint32_t below = (1u << (i & 31)) - 1u;
+  return make_int4(base.x + __popc(~p0 & ~p1 & below),
+                   base.y + __popc(p0 & ~p1 & below),
+                   base.z + __popc(~p0 & p1 & below),
+                   base.w + __popc(p0 & p1 & below));
+}
+
+__global__ void range_refine_kernel(const int4* __restrict__ occ_d,
+                                    const int2* __restrict__ planes_d,
+                                    const int32_t* __restrict__ lo,
+                                    const int32_t* __restrict__ hi,
+                                    const int32_t* __restrict__ c,
+                                    int32_t* __restrict__ lo_out,
+                                    int32_t* __restrict__ hi_out, int n) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const int32_t l = __ldg(lo + s);
+  const int ch = __ldg(c + s);
+  const int4 a = counts_at(occ_d, planes_d, l);
+  const int4 z = counts_at(occ_d, planes_d, __ldg(hi + s));
+  const int n0 = z.x - a.x, n1 = z.y - a.y, n2 = z.z - a.z, n3 = z.w - a.w;
+  // keys of chars below ch come first; then ch's own
+  const int below = (ch > 0 ? n0 : 0) + (ch > 1 ? n1 : 0) + (ch > 2 ? n2 : 0);
+  const int count = ch == 0 ? n0 : ch == 1 ? n1 : ch == 2 ? n2 : n3;
+  const int32_t new_lo = l + below;
+  lo_out[s] = new_lo;
+  hi_out[s] = new_lo + count;
+}
+
+__global__ void range_refine4_kernel(const int4* __restrict__ occ_d,
+                                     const int2* __restrict__ planes_d,
+                                     const int32_t* __restrict__ lo,
+                                     const int32_t* __restrict__ hi,
+                                     int4* __restrict__ lo4,
+                                     int4* __restrict__ hi4, int n) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const int32_t l = __ldg(lo + s);
+  const int4 a = counts_at(occ_d, planes_d, l);
+  const int4 z = counts_at(occ_d, planes_d, __ldg(hi + s));
+  const int n0 = z.x - a.x, n1 = z.y - a.y, n2 = z.z - a.z, n3 = z.w - a.w;
+  const int4 start = make_int4(l, l + n0, l + n0 + n1, l + n0 + n1 + n2);
+  lo4[s] = start;
+  hi4[s] = make_int4(start.x + n0, start.y + n1, start.z + n2, start.w + n3);
+}
+
+}  // namespace
+
+extern "C" int psi_range_refine(const void* occ, const void* planes,
+                                int rows, int depth, const void* lo,
+                                const void* hi, const void* c, void* lo_out,
+                                void* hi_out, int n, void* stream) {
+  if (n > 0) {
+    const size_t at = static_cast<size_t>(depth) * rows;
+    const int grid = (n + kThreads - 1) / kThreads;
+    range_refine_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int4*>(occ) + at,
+        static_cast<const int2*>(planes) + at,
+        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
+        static_cast<const int32_t*>(c), static_cast<int32_t*>(lo_out),
+        static_cast<int32_t*>(hi_out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int psi_range_refine4(const void* occ, const void* planes,
+                                 int rows, int depth, const void* lo,
+                                 const void* hi, void* lo4, void* hi4, int n,
+                                 void* stream) {
+  if (n > 0) {
+    const size_t at = static_cast<size_t>(depth) * rows;
+    const int grid = (n + kThreads - 1) / kThreads;
+    range_refine4_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int4*>(occ) + at,
+        static_cast<const int2*>(planes) + at,
+        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
+        static_cast<int4*>(lo4), static_cast<int4*>(hi4), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -14,7 +14,14 @@ the seed join and emission. The device routes are this package's:
     with a host locate, and the gather route (backward search over code
     rows on the dense occ table, csrc/occ_gather.cu) with a device or a
     host locate;
-  * off-path: the host WalkTree, built once per loci set;
+  * off-path, psi_tpu's routes chosen as psi_tpu chooses them: the
+    WalkTree (built once per loci set, probed per chunk on the finder's
+    device) when there are no mismatches, PSI_TRAV_CACHE is on and the
+    tree fits PSI_TRAV_CACHE_CAP, and otherwise the per-chunk frontier
+    traversal on the device (`traverse_device`, or with --mismatches
+    `traverse_device_approx`, csrc/range_refine.cu), dispatched before
+    the on-path route and collected after it; `seeds_off_paths(
+    device=False)` runs the host BFS mirror;
   * the MEM library API (`find_mems_arrays`, `seeds_on_paths_seqs`): the
     lockstep MEM automaton on the device, locate on the host.
 
@@ -73,10 +80,6 @@ class SeedFinder:
                 "multi-device query pipelines are not ported yet "
                 "(ROADMAP.md Queue 1, item 10)"
             )
-        if seed_mismatches > 0:
-            raise NotImplementedError(
-                "--mismatches is not ported yet (ROADMAP.md Queue 1, item 7)"
-            )
         #: the query device: the card unless the caller names the CPU
         self.device = resolve("cuda") if device is None else torch.device(device)
         self.graph = graph
@@ -96,8 +99,10 @@ class SeedFinder:
         self._map_arrays = None
         self._stream_arrays = None
         self._ftab_np = None
-        self._trav_tree = None  # (fingerprint, WalkTree)
-        self._loci_np = None    # (n, (node ids, offsets))
+        self._graph_arrays = None
+        # (fingerprint, WalkTree | False, DeviceWalkTree | None)
+        self._trav_tree = None
+        self._loci_np = None    # (n, (node ids, offsets), {cap: on device})
         self._prep_lock = threading.Lock()
 
     # === path picking =======================================================
@@ -1068,7 +1073,7 @@ class SeedFinder:
                     Seed(int(nid), int(noff), reads.position_to_id(rid), 0, L, 0)
                 )
 
-    # === seeds off paths: the host WalkTree =================================
+    # === seeds off paths (traversal route) ==================================
     def seeds_off_paths(
         self,
         seeds: SeedSet,
@@ -1077,76 +1082,146 @@ class SeedFinder:
         device: bool = True,
     ):
         """(ref: seed_finder.hpp:1703-1722 over traverser_bfs.hpp:72-164)"""
-        if not device:
-            raise NotImplementedError(
-                "the host frontier traversal is not ported yet "
-                "(ROADMAP.md Queue 1, item 4)"
-            )
         self.stats.set_progress(ProgressEnum.READY)
         tstats = self.stats.get_this_thread_stats()
         tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
         with self.stats.timeit_ts("seeds-off-path"):
             if not self.starting_loci:
                 return
-            cols = self._traverse_device_columns(index)
-            if cols is not None:
-                for nid, noff, sid, gocc, L in zip(*(c.tolist() for c in cols)):
-                    callback(
-                        Seed(
-                            nid,
-                            noff,
-                            seeds.read_id(sid),
-                            seeds.read_offset(sid),
-                            L,
-                            gocc,
-                        )
+            if device:
+                cols = self._traverse_device_columns(index)
+                raw = (zip(*(c.tolist() for c in cols)) if cols is not None
+                       else ())
+            else:
+                raw = trav.traverse_host(
+                    self.graph, index, self.starting_loci, self.seed_len,
+                    max_mismatches=self.seed_mismatches,
+                )
+            for nid, noff, sid, gocc, L in raw:
+                callback(
+                    Seed(
+                        nid,
+                        noff,
+                        seeds.read_id(sid),
+                        seeds.read_offset(sid),
+                        L,
+                        gocc,
                     )
+                )
             tstats.set_locus_idx(len(self.starting_loci))
 
-    def _get_trav_tree(self):
-        """Lazy WalkTree, fingerprinted on the loci set so a loci reload
-        rebuilds it."""
-        sn, so = self._get_loci_np()
-        fp = (len(sn), hash((sn.tobytes(), so.tobytes())))
-        cached = self._trav_tree
-        if cached is not None and cached[0] == fp:
-            return cached[1]
-        with self._prep_lock:
-            cached = self._trav_tree
-            if cached is not None and cached[0] == fp:
-                return cached[1]
-            with self.stats.timeit_ts("seeds-off-path"):
-                tree = trav.enumerate_walks(self.graph, sn, so, self.seed_len,
-                                            node_cap=trav.NODE_CAP)
-            if tree is None:
-                raise NotImplementedError(
-                    f"WalkTree over its cap of {trav.NODE_CAP} nodes: the "
-                    "device traversal is not ported yet "
-                    "(ROADMAP.md Queue 1, items 4 and 6)"
-                )
-            self._trav_tree = (fp, tree)
-        return tree
-
-    def _traverse_device_columns(self, index):
+    def _traverse_device_columns(self, index: SeedsIndex):
         """(node, off, seed_id, gocc, len) columns of the off-path hits,
         or None when there are no loci or seeds."""
         if not self.starting_loci or index.size == 0:
             return None
-        return self._tree_columns(index, self._get_trav_tree())
+        return self._traverse_collect(index, self._traverse_dispatch(index))
 
-    def _tree_columns(self, index, tree):
-        """Probe the WalkTree with the chunk's sorted seed keys and expand
-        the surviving states into hit columns."""
-        locus_idx, lo, hi, gd, ended, ended_len = trav.walks_match(
-            tree, index.sorted_keys
+    def _get_graph_arrays(self):
+        if self._graph_arrays is None:
+            self._graph_arrays = trav.graph_to_device(self.graph, self.device)
+        return self._graph_arrays
+
+    def _traverse_dispatch(self, index: SeedsIndex, g=None, sa=None,
+                           cap: int | None = None):
+        """Issue the off-path traversal: the WalkTree when there are no
+        mismatches and the tree is cached and fits its cap, else the
+        frontier traversal queued on the device (its k steps need no host
+        sync, so the on-path route that follows overlaps it). Returns a
+        tagged handle for _traverse_collect, or None when off-path does
+        not apply."""
+        if not self.starting_loci or index.size == 0:
+            return None
+        if not self.seed_mismatches and cap is None:
+            tree = self._get_trav_tree()
+            if tree is not None:
+                return ("tree", tree)
+        if g is None:
+            g = self._get_graph_arrays()
+        if sa is None:
+            sa = trav.seeds_to_device(index, self.device)
+        n = len(self.starting_loci)
+        if cap is None:
+            cap = max(1 << 15, 1 << (n - 1).bit_length())
+        sn_d, so_d = self._get_loci_device(cap)
+        packed_d = trav.traverse_device_packed(
+            g, sa, sn_d, so_d, n, self.seed_len, cap, self.seed_mismatches,
         )
-        n_used = len(locus_idx)
-        self.stats.get_this_thread_stats().add_traversal(
-            gd, ended + n_used, ended_len + n_used * self.seed_len,
-        )
+        return ("single", packed_d, cap, g, sa)
+
+    def _traverse_collect(self, index: SeedsIndex, pending):
+        """Fetch a _traverse_dispatch result (retrying with a doubled
+        state cap on overflow) and assemble the columnar survivors."""
+        if pending is None:
+            return None
+        if pending[0] == "tree":
+            locus_idx, lo, hi, gd, ended, ended_len = trav.walks_match_device(
+                pending[1], index.sorted_keys
+            )
+            n_used = len(locus_idx)
+            self.stats.get_this_thread_stats().add_traversal(
+                gd, ended + n_used, ended_len + n_used * self.seed_len,
+            )
+            return trav.traverse_columnar_from_states(
+                index, self.starting_loci, locus_idx, lo, hi, self.seed_len,
+            )
+        _, packed_d, cap, g, sa = pending
+        while True:
+            packed = packed_d.cpu().numpy()
+            n_used, overflow = int(packed[3 * cap]), int(packed[3 * cap + 1])
+            if overflow:
+                _, packed_d, cap, g, sa = self._traverse_dispatch(
+                    index, g, sa, cap * 2
+                )
+                continue
+            if not self.seed_mismatches:
+                # only account the final (non-overflowing) run's counters
+                gd, ended, ended_len = (int(v) for v in packed[3 * cap + 2:])
+                self.stats.get_this_thread_stats().add_traversal(
+                    gd, ended + n_used, ended_len + n_used * self.seed_len,
+                )
+            break
         return trav.traverse_columnar_from_states(
-            index, self.starting_loci, locus_idx, lo, hi, self.seed_len,
+            index, self.starting_loci,
+            packed[:n_used],
+            packed[cap: cap + n_used],
+            packed[2 * cap: 2 * cap + n_used],
+            self.seed_len,
         )
+
+    @staticmethod
+    def _trav_tree_enabled() -> bool:
+        """WalkTree route (see ops/traverse.WalkTree), on by default for
+        exact matching: the per-chunk traversal becomes prefix probes of a
+        tree built once per loci set. PSI_TRAV_CACHE=0 runs the per-chunk
+        device traversal instead."""
+        return os.environ.get("PSI_TRAV_CACHE", "1") not in ("", "0")
+
+    def _get_trav_tree(self):
+        """Lazy chunk-independent WalkTree on the finder's device, or None
+        when the route is off or the tree exceeds PSI_TRAV_CACHE_CAP nodes
+        (default trav.NODE_CAP). Fingerprinted on the loci set (node and
+        offset bytes), so staged add_uncovered_loci calls or loci reloads
+        rebuild it."""
+        if not self._trav_tree_enabled():
+            return None
+        sn, so = self._get_loci_np()
+        fp = (len(sn), hash((sn.tobytes(), so.tobytes())))
+        cached = self._trav_tree
+        if cached is None or cached[0] != fp:
+            with self._prep_lock:
+                cached = self._trav_tree
+                if cached is None or cached[0] != fp:
+                    with self.stats.timeit_ts("seeds-off-path"):
+                        cap = int(os.environ.get("PSI_TRAV_CACHE_CAP",
+                                                 str(trav.NODE_CAP)))
+                        tree = trav.enumerate_walks(
+                            self.graph, sn, so, self.seed_len, node_cap=cap)
+                        dtree = (None if tree is None
+                                 else trav.tree_to_device(tree, self.device))
+                    cached = (fp, tree if tree is not None else False, dtree)
+                    self._trav_tree = cached
+        return cached[2]
 
     def _get_loci_np(self):
         """Host-side starting-loci arrays (cached per loci count)."""
@@ -1157,8 +1232,21 @@ class SeedFinder:
             for i, l in enumerate(self.starting_loci):
                 sn[i] = l.node_id()
                 so[i] = l.offset()
-            self._loci_np = (n, (sn, so))
+            self._loci_np = (n, (sn, so), {})
         return self._loci_np[1]
+
+    def _get_loci_device(self, cap: int):
+        """The starting loci on the device, padded to `cap` (the loci are
+        fixed per finder: one upload per cap bucket, not per chunk)."""
+        sn, so = self._get_loci_np()
+        dev = self._loci_np[2].get(cap)
+        if dev is None:
+            padded = np.zeros((2, cap), dtype=np.int32)
+            padded[0, : len(sn)] = sn
+            padded[1, : len(so)] = so
+            dev = tuple(torch.from_numpy(a).to(self.device) for a in padded)
+            self._loci_np[2][cap] = dev
+        return dev
 
     @staticmethod
     def _off_cols_to_arrays(seeds: SeedSet, cols):
@@ -1183,22 +1271,24 @@ class SeedFinder:
 
     def seeds_all_arrays(self, seeds: SeedSet, index: SeedsIndex,
                          split: bool = False):
-        """Both routes, columnar; the bulk path used by the CLI. The
-        WalkTree is fetched (built once per loci set) before the on-path
-        route and probed after it, as psi_tpu dispatches its traversal
-        first. `split=True` returns (on_path, off_path) arrays instead of
-        the concatenation."""
-        tree = None
+        """Both routes, columnar; the bulk path used by the CLI.
+
+        The off-path traversal is dispatched first (the WalkTree fetched,
+        or the device traversal queued) and collected after the on-path
+        route, so a device traversal overlaps the on-path transfers and
+        host joins. `split=True` returns (on_path, off_path) arrays
+        instead of the concatenation."""
+        pending = None
         if self.starting_loci and index.size:
             with self.stats.timeit_ts("seeds-off-path"):
-                tree = self._get_trav_tree()
+                pending = self._traverse_dispatch(index)
         parts = [self.seeds_on_paths_arrays(seeds, index)]
-        if tree is not None:
+        if pending is not None:
             with self.stats.timeit_ts("seeds-off-path"):
                 tstats = self.stats.get_this_thread_stats()
                 tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
                 parts.append(self._off_cols_to_arrays(
-                    seeds, self._tree_columns(index, tree)
+                    seeds, self._traverse_collect(index, pending)
                 ))
                 tstats.set_locus_idx(len(self.starting_loci))
         else:

@@ -17,8 +17,10 @@ from psi_tpu_torch.graphiter import HaplotyperRandomIter
 from psi_tpu_torch.pathutil import Path, sequence
 from psi_tpu_torch.simulate import make_pangenome_graph
 from psi_tpu_torch.ops import fm as fm_ops
+from psi_tpu_torch.graph import Position
 from psi_tpu_torch.ops import fm_fused, fm_pallas, fm_stream, fm_trie
-from psi_tpu_torch.records import Records
+from psi_tpu_torch.ops import traverse as trav
+from psi_tpu_torch.records import Records, SeedsIndex, seeding
 from psi_tpu_torch.seed_finder import SeedFinder
 
 pytestmark = pytest.mark.cuda
@@ -472,3 +474,153 @@ def test_cli_cuda_matches_cpu(tmp_path, dev):
     assert fm_fused.trie_level.launches > n0
     assert len(streams[0]) > 0
     assert streams[0].tobytes() == streams[1].tobytes()
+
+
+def _offpath_case(k, n_reads=40, seed=3):
+    """A bubble graph with an 'N' in one label, every locus a start, and
+    a SeedsIndex of k-mers of a random haplotype with 1% substitutions."""
+    rng = np.random.RandomState(seed)
+    graph = make_pangenome_graph(3000, 0.05, indel_frac=0.4, seed=seed)
+    graph.labels = graph.labels.copy()
+    graph.labels[rng.randint(0, len(graph.labels))] = ord("N")
+    itr = HaplotyperRandomIter(graph, seed=seed + 1)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = sequence(hap)
+    starts = rng.randint(0, len(hs) - 3 * k, n_reads)
+    reads = Records([f"r{i}" for i in range(n_reads)],
+                    [hs[p: p + 3 * k] for p in starts])
+    index = SeedsIndex(seeding(reads, k, k))
+    loci = [Position(n, o) for n in range(1, graph.node_count + 1)
+            for o in range(graph.node_length(n))]
+    sn = np.array([p.node_id() for p in loci], dtype=np.int32)
+    so = np.array([p.offset() for p in loci], dtype=np.int32)
+    return graph, index, sn, so
+
+
+def test_range_refine_kernels_match_plain(dev):
+    """range_refine and range_refine4 against their plain versions at
+    every depth, at the edges (0, V, empty ranges, block ends) and at
+    random, with an odd count and an empty batch (no launch); bad depths,
+    shapes and a misaligned occ table are refused."""
+    _, index, _, _ = _offpath_case(12, n_reads=400)
+    seeds = trav.seeds_to_device(index, dev)
+    rng = np.random.RandomState(7)
+    V, m = index.size, 5001
+    lo = rng.randint(0, V + 1, m)
+    hi = np.minimum(lo + rng.choice([0, 1, 31, 32, 33, V], m), V)
+    lo[:4], hi[:4] = (0, 0, V, 31), (V, 0, V, 32)
+    lo, hi, c = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (lo, hi, rng.randint(0, 4, m)))
+    for depth in range(index.k):
+        n0 = trav.range_refine.launches, trav.range_refine4.launches
+        got = trav.range_refine(seeds, depth, lo, hi, c)
+        got4 = trav.range_refine4(seeds, depth, lo, hi)
+        empty = trav.range_refine4(seeds, depth, lo[:0], hi[:0])
+        torch.cuda.synchronize()
+        assert (trav.range_refine.launches,
+                trav.range_refine4.launches) == (n0[0] + 1, n0[1] + 1)
+        want = trav.range_refine_plain(seeds, depth, lo, hi, c)
+        want4 = trav.range_refine4_plain(seeds, depth, lo, hi)
+        for g, w in zip((*got, *got4), (*want, *want4)):
+            assert torch.equal(g, w)
+        assert empty[0].shape == (0, 4)
+    with pytest.raises(ValueError, match="depth"):
+        trav.range_refine(seeds, index.k, lo, hi, c)
+    with pytest.raises(ValueError, match=r"must be \[N\]"):
+        trav.range_refine(seeds, 0, lo, hi[:-1], c)
+    buf = torch.zeros(seeds.occ.numel() + 1, dtype=torch.int32, device=dev)
+    off = seeds._replace(occ=buf[1:].view(seeds.occ.shape))
+    with pytest.raises(ValueError, match="aligned"):
+        trav.range_refine4(off, 0, lo, hi)
+
+
+@pytest.mark.parametrize("k", [12, 32])
+def test_traversals_cuda_match_cpu(dev, k):
+    """traverse_device (its k steps under sync debug mode "error": no
+    host sync) and traverse_device_approx (m = 1) on the card equal their
+    runs on the CPU over the whole cap, with k range_refine (range_refine4)
+    launches; the device WalkTree probe on the card equals the host
+    probe and the exact traversal's survivors."""
+    graph, index, sn, so = _offpath_case(k)
+    cap = 1 << 13
+    snp, sop = (np.resize(np.pad(a, (0, cap - len(a))), cap) for a in (sn, so))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        g, sa = trav.graph_to_device(graph, d), trav.seeds_to_device(index, d)
+        args = (g, sa, torch.from_numpy(snp).to(d),
+                torch.from_numpy(sop).to(d), len(sn), k, cap)
+        n0 = trav.range_refine.launches, trav.range_refine4.launches
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            exact = trav.traverse_device(*args)
+            approx = trav.traverse_device_approx(*args, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launched = (trav.range_refine.launches - n0[0],
+                    trav.range_refine4.launches - n0[1])
+        out[d.type] = ([a.cpu().numpy() for a in exact],
+                       [a.cpu().numpy() for a in approx], launched)
+    (ex, ap, launched), (cex, cap_, claunched) = out["cuda"], out["cpu"]
+    assert launched == (k, k) and claunched == (0, 0)
+    for a, b in zip((*ex, *ap), (*cex, *cap_)):
+        np.testing.assert_array_equal(a, b)
+    nu = int(ex[3])
+    assert nu > 0 and not ex[4]
+    tree = trav.enumerate_walks(graph, sn, so, k)
+    host = trav.walks_match(tree, index.sorted_keys)
+    got = trav.walks_match_device(trav.tree_to_device(tree, dev),
+                                  index.sorted_keys)
+    for a, b in zip(got, host, strict=True):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(host[:3], ex[:3]):
+        np.testing.assert_array_equal(a, b[:nu])
+    assert host[3:] == tuple(int(v) for v in ex[5])
+
+
+def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
+    """seeds_all_arrays on the card equals it on the CPU on the WalkTree
+    route, the device traversal (PSI_TRAV_CACHE=0) and the mismatch
+    route (m = 1): the exact traversal launched range_refine k times, the
+    mismatch route range_refine4 k times per attempt."""
+    graph = make_pangenome_graph(30_000, 0.02, seed=8)
+    itr = HaplotyperRandomIter(graph, seed=12)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    rng = np.random.RandomState(4)
+    reads = hs[rng.randint(0, len(hs) - 100, 300)[:, None] + np.arange(100)]
+    recs = Records([f"r{i}" for i in range(300)],
+                   [r.tobytes().decode() for r in reads])
+    finders = {}
+    for device in ("cuda", "cpu"):
+        finders[device] = SeedFinder(graph, 20, device=device)
+        finders[device].create_path_index(1, patched=False)
+    for cache, mm in (("1", 0), ("0", 0), ("1", 1)):
+        monkeypatch.setenv("PSI_TRAV_CACHE", cache)
+        rows = {}
+        for device, finder in finders.items():
+            finder.seed_mismatches = mm
+            seeds = finder.get_seeds(recs)
+            index = finder.index_reads(seeds)
+            n0 = trav.range_refine.launches, trav.range_refine4.launches
+            on, off = finder.seeds_all_arrays(seeds, index, split=True)
+            launched = (trav.range_refine.launches - n0[0],
+                        trav.range_refine4.launches - n0[1])
+            rows[device] = [np.sort(a, order=list(a.dtype.names))
+                            for a in (on, off)]
+            if device == "cuda":
+                if mm:
+                    assert launched[0] == 0 and launched[1] % 20 == 0
+                    assert launched[1] > 0
+                else:
+                    assert launched == (20 if cache == "0" else 0, 0)
+        assert len(rows["cuda"][1]) > 0
+        for a, b in zip(rows["cuda"], rows["cpu"]):
+            assert a.tobytes() == b.tobytes()

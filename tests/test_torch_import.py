@@ -16,6 +16,7 @@ from psi_tpu_torch import _build, native
 from psi_tpu_torch.device import resolve
 from psi_tpu_torch.ops import fm as fm_ops
 from psi_tpu_torch.ops import fm_fused, fm_pallas, fm_stream, fm_trie
+from psi_tpu_torch.ops import traverse as trav
 from psi_tpu_torch.seed_finder import SeedFinder
 from psi_tpu_torch.simulate import make_pangenome_graph
 
@@ -77,11 +78,20 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     finder.prepare_onpath(index)
     on, off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(on) > 0 and len(off) > 0, (len(on), len(off))
+    os.environ["PSI_TRAV_CACHE"] = "0"       # the device traversal
+    dev_on, dev_off = finder.seeds_all_arrays(seeds, index, split=True)
+    assert len(dev_off) == len(off), (len(dev_off), len(off))
+    host = []
+    finder.seeds_off_paths(seeds, index, host.append, device=False)
+    assert len(host) == len(off), (len(host), len(off))
     os.environ["PSI_STREAM"] = "0"           # the gather route
     gather = finder.seeds_on_paths_arrays(seeds, index)
     assert len(gather) == len(on), (len(gather), len(on))
     mems = finder.find_mems_arrays(reads)
     assert len(mems) > 0
+    finder.seed_mismatches = 1               # the mismatch routes
+    mm_on, mm_off = finder.seeds_all_arrays(seeds, index, split=True)
+    assert len(mm_on) > len(on) and len(mm_off) > len(off)
     loaded = [m for m, v in sys.modules.items()
               if v is not None and m.split(".")[0] in ("jax", "psi_tpu")]
     assert not loaded, loaded
@@ -207,7 +217,7 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     assert _build.build() == lib               # same sources: no rebuild
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
-               "rank.cu", "occ_gather.cu", "status.cu")
+               "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
@@ -254,3 +264,9 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         fm_pallas.gather_occ_rows(t.reshape(-1, 8), t)
     with pytest.raises(ValueError, match="unsupported device"):
         fm_pallas.lf_pair(t.reshape(-1, 8), t, t, t, t)
+    seeds = trav.SeedsArrays(t.reshape(2, -1, 4), t[:4096].reshape(2, -1, 2),
+                             100)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trav.range_refine(seeds, 0, t, t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trav.range_refine4(seeds, 0, t, t)

@@ -5,7 +5,11 @@ hit streams and equal report seedhits, with hits both on and off the
 indexed paths. psi_tpu's other on-path routes (the gather route and the
 trie search with a host locate, chosen by PSI_STREAM and
 PSI_DEVICE_LOCATE) and the MEM and whole-read APIs against psi_tpu's, in
-process. Plus the cases the port does not cover yet, which raise."""
+process. The off-path routes (the WalkTree, the device traversal under
+PSI_TRAV_CACHE=0 or past PSI_TRAV_CACHE_CAP, the host BFS mirror) and the
+mismatch routes (--mismatches 1 and 2) against psi_tpu's, on a graph with
+an injected 'N'. Plus the cases the port does not cover yet, which
+raise."""
 
 import json
 
@@ -19,12 +23,14 @@ from psi_tpu.pathutil import Path, sequence
 from psi_tpu.records import Records as JRecords
 from psi_tpu.seed_finder import SeedFinder as JSeedFinder
 from psi_tpu.simulate import make_pangenome_graph
+from psi_tpu.stats import SeedFinderStats as JStats
 from psi_tpu_torch import cli
 from psi_tpu_torch import simulate as tsim
 from psi_tpu_torch.ops import fm_fused
 from psi_tpu_torch.ops import traverse as trav
 from psi_tpu_torch.records import Records
 from psi_tpu_torch.seed_finder import SeedFinder
+from psi_tpu_torch.stats import SeedFinderStats
 
 
 @pytest.fixture(scope="module")
@@ -222,16 +228,19 @@ def test_all_exact_matches_matches_psi_tpu(finders):
 
 
 def test_not_ported_yet_raises(dataset, monkeypatch):
+    """Multi-device pipelines (item 10) and the distance index (item 9)
+    still raise; mismatches and an over-cap WalkTree no longer do (the
+    tree route gives way to the device traversal)."""
     graph = make_pangenome_graph(3000, 0.02, seed=1)
-    for kw in ({"seed_mismatches": 1}, {"devices": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SeedFinder(graph, 12, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SeedFinder(graph, 12, devices=2)
+    assert SeedFinder(graph, 12, seed_mismatches=1,
+                      device="cpu").seed_mismatches == 1
     finder = SeedFinder(graph, 12, device="cpu")
     finder.create_path_index(1, patched=False)
-    finder.add_uncovered_loci()
     monkeypatch.setattr(trav, "NODE_CAP", 10)
-    with pytest.raises(NotImplementedError, match="WalkTree over its cap"):
-        finder._get_trav_tree()
+    assert finder._get_trav_tree() is None
+    assert finder._trav_tree[1] is False
     with pytest.raises(NotImplementedError, match="item 9"):
         SeedFinder(graph, 12, device="cpu").create_path_index(
             1, patched=False, dmin=200, dmax=400)
@@ -262,3 +271,163 @@ def test_cli_device_cuda_without_gpu_raises(dataset, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([gpath, "-f", fq, "-l", "20", "--device", "cuda",
                   "-o", str(tmp / "none.bin"), "-q", "-Q"])
+
+
+K_OFF = 12
+
+
+@pytest.fixture(scope="module")
+def trav_finders():
+    """psi_tpu's and the port's SeedFinder (CPU) on a bubble graph with
+    an 'N' in one label, one path indexed (so many uncovered loci), and
+    reads of a random haplotype with 1% substitutions."""
+    graph = make_pangenome_graph(6000, 0.03, indel_frac=0.3, seed=21)
+    tgraph = tsim.make_pangenome_graph(6000, 0.03, indel_frac=0.3, seed=21)
+    rng = np.random.RandomState(2)
+    at = rng.randint(0, len(graph.labels))
+    for g in (graph, tgraph):
+        g.labels = g.labels.copy()
+        g.labels[at] = ord("N")
+    itr = HaplotyperRandomIter(graph, seed=5)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    n, L = 60, 48
+    reads = hs[rng.randint(0, len(hs) - L, n)[:, None] + np.arange(L)]
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    reads = np.where(rng.random_sample(reads.shape) < 0.01,
+                     bases[rng.randint(0, 4, reads.shape)], reads)
+    seqs = [r.tobytes().decode() for r in reads]
+    names = [f"r{i}" for i in range(n)]
+    jf = JSeedFinder(graph, K_OFF, stats=JStats())
+    tf = SeedFinder(tgraph, K_OFF, stats=SeedFinderStats(), device="cpu")
+    for f in (jf, tf):
+        f.create_path_index(1, patched=False)
+    assert len(tf.starting_loci) == len(jf.starting_loci) > 1000
+    return jf, tf, JRecords(names, seqs), Records(names, seqs)
+
+
+def _traversal_stats(finder):
+    ts = finder.stats.get_this_thread_stats()
+    return ts.godowns, ts.paths_traversed, ts.paths_len_sum
+
+
+def _all_rows(finder, reads):
+    """Lexsorted on- and off-path rows of seeds_all_arrays, and the
+    TraverserStats it added."""
+    seeds = finder.get_seeds(reads)
+    index = finder.index_reads(seeds)
+    before = _traversal_stats(finder)
+    on, off = finder.seeds_all_arrays(seeds, index, split=True)
+    after = _traversal_stats(finder)
+    return _rows(on), _rows(off), tuple(a - b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("route,env,mm", [
+    ("tree", {}, 0),
+    ("device", {"PSI_TRAV_CACHE": "0"}, 0),
+    ("over-cap", {"PSI_TRAV_CACHE_CAP": "50"}, 0),
+    ("mismatch1", {}, 1),
+    ("mismatch2", {}, 2),
+])
+def test_seeds_all_arrays_matches_psi_tpu(trav_finders, monkeypatch, route,
+                                          env, mm):
+    """seeds_all_arrays on every off-path route (the WalkTree, the device
+    traversal by PSI_TRAV_CACHE=0 and past a tiny PSI_TRAV_CACHE_CAP, the
+    mismatch-tolerant traversal) gives psi_tpu's lexsorted on- and
+    off-path hits, with the exact routes' TraverserStats equal to psi_tpu's
+    and to each other's; a mismatch route adds no TraverserStats."""
+    jf, tf, jreads, treads = trav_finders
+    for name in ("PSI_TRAV_CACHE", "PSI_TRAV_CACHE_CAP"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    for f in (jf, tf):
+        f._trav_tree = None
+        monkeypatch.setattr(f, "seed_mismatches", mm)
+    n0 = trav.range_refine.launches, trav.range_refine4.launches
+    got = _all_rows(tf, treads)
+    want = _all_rows(jf, jreads)
+    assert (trav.range_refine.launches, trav.range_refine4.launches) == n0
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert len(got[0]) > 0 and len(got[1]) > 0
+    assert got[2] == want[2]
+    assert (got[2] == (0, 0, 0)) == bool(mm)
+    assert (tf._trav_tree is not None
+            and tf._trav_tree[1] is not False) == (route == "tree")
+    if mm:
+        exact = SeedFinder(tf.graph, K_OFF, device="cpu")
+        exact.pindex, exact._path_map = tf.pindex, tf._path_map
+        exact.starting_loci = tf.starting_loci
+        on, off, _ = _all_rows(exact, treads)
+        assert len(got[0]) > len(on) and len(got[1]) > len(off)
+
+
+@pytest.mark.parametrize("stream,locate", [
+    ("1", "1"), ("1", "0"), ("0", "1"), ("0", "0"),
+], ids=["chain", "stream-hostlocate", "gather-devlocate", "gather-hostlocate"])
+def test_onpath_mismatch_routes_match_psi_tpu(trav_finders, monkeypatch,
+                                              stream, locate):
+    """With one mismatch every on-path route (the chain, the trie search
+    with a host locate, the gather route with a device or host locate)
+    joins the Hamming-ball hits back to their seeds through `origin`:
+    psi_tpu's hits under the same variables, and the chain's."""
+    jf, tf, jreads, treads = trav_finders
+    for f in (jf, tf):
+        monkeypatch.setattr(f, "seed_mismatches", 1)
+    for name in ("PSI_STREAM", "PSI_DEVICE_LOCATE"):
+        monkeypatch.delenv(name, raising=False)
+    chain = _onpath(tf, treads)
+    monkeypatch.setenv("PSI_STREAM", stream)
+    monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
+    got = _onpath(tf, treads)
+    np.testing.assert_array_equal(got, _onpath(jf, jreads))
+    np.testing.assert_array_equal(got, chain)
+    assert len(got) > len(_exact_onpath(tf, treads))
+
+
+def _exact_onpath(finder, reads):
+    exact = SeedFinder(finder.graph, finder.seed_len, device="cpu")
+    exact.pindex, exact._path_map = finder.pindex, finder._path_map
+    return _onpath(exact, reads)
+
+
+@pytest.mark.parametrize("mm", [0, 1])
+def test_seeds_off_paths_host_matches_psi_tpu(trav_finders, monkeypatch, mm):
+    """seeds_off_paths(device=False), the host BFS mirror, gives
+    psi_tpu's hits, and the device route's (the WalkTree, or with a
+    mismatch the device traversal)."""
+    jf, tf, jreads, treads = trav_finders
+    for f in (jf, tf):
+        monkeypatch.setattr(f, "seed_mismatches", mm)
+    out = {}
+    for name, f, reads in (("torch", tf, treads), ("jax", jf, jreads)):
+        seeds = f.get_seeds(reads)
+        index = f.index_reads(seeds)
+        for device in (False, True):
+            hits = []
+            f.seeds_off_paths(seeds, index, hits.append, device=device)
+            out[name, device] = _seed_rows(hits)
+    assert len(out["torch", False]) > 0
+    np.testing.assert_array_equal(out["torch", False], out["jax", False])
+    np.testing.assert_array_equal(out["torch", True], out["torch", False])
+    np.testing.assert_array_equal(out["jax", True], out["jax", False])
+
+
+def test_cli_mismatches_matches_psi_tpu(dataset):
+    """psikt --mismatches 1 on the CPU against psi_tpu's CLI: equal
+    lexsorted hit streams, with more hits than exact matching, on and off
+    the paths."""
+    tmp, gpath, fq = dataset
+    got, rep = _run(cli.main, tmp, gpath, fq, "torch_mm1", 0,
+                    ("--device", "cpu", "--mismatches", "1"))
+    want, jrep = _run(jcli.main, tmp, gpath, fq, "jax_mm1", 0,
+                      ("--device", "cpu", "--mismatches", "1"))
+    exact, _ = _run(cli.main, tmp, gpath, fq, "torch_mm0", 0,
+                    ("--device", "cpu"))
+    assert got.tobytes() == want.tobytes()
+    assert rep["seedhits"] == jrep["seedhits"] == len(got) > len(exact)
+    assert sum(c["hits_off"] for c in rep["chunks"]) > 0

@@ -1,11 +1,16 @@
-"""psi_tpu_torch.ops.traverse (the host WalkTree) against
-psi_tpu.ops.traverse: the tree, its per-chunk probe and the hit columns
-are array-equal for k < 32, and at k = 32 the probe matches psi_tpu's
-device traversal (where psi_tpu's own WalkTree loses states whose prefix
-range end wraps past 2^64)."""
+"""psi_tpu_torch.ops.traverse against psi_tpu.ops.traverse on graphs with
+an injected 'N' (R2), on the CPU: the WalkTree, its host and device
+probes and the hit columns are array-equal for k < 32, and at k = 32 the
+probes match psi_tpu's device traversal (where psi_tpu's own WalkTree
+loses states whose prefix range end wraps past 2^64, R1); the device
+arrays, the range refine (plain versions, which the CPU wrappers run),
+the exact and mismatch-tolerant frontier traversals over the whole cap
+(overflow included), the packed layout, the retrying `traverse` and the
+host BFS mirror are equal to psi_tpu's."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -95,3 +100,204 @@ def test_walks_match_k32_matches_traverse_device():
     # exactly the states a wrapping `klo + width` bound would drop
     first = index.sorted_keys[lo] >> np.uint64(2 * k - 2)
     assert (first == 3).any()
+
+
+def _device_tree_probe(tree, keys):
+    return trav.walks_match_device(trav.tree_to_device(tree, "cpu"), keys)
+
+
+@pytest.mark.parametrize("seed,k", [(3, 9), (11, 14), (5, 32)])
+def test_walks_match_device_matches_walks_match(seed, k):
+    """The device probe (on the CPU) returns the host probe's survivors,
+    order and TraverserStats, at k = 32 too."""
+    graph, index, loci, sn, so = _graph_reads(seed, k, t_first=k == 32)
+    tree = trav.enumerate_walks(graph, sn, so, k)
+    want = trav.walks_match(tree, index.sorted_keys)
+    got = _device_tree_probe(tree, index.sorted_keys)
+    assert len(want[0]) > 0
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def test_device_arrays_match_psi_tpu():
+    """graph_to_device and seeds_to_device (occ derived from the planes)
+    equal psi_tpu's arrays; the derived occ equals the host index's on
+    every row the rank reads."""
+    graph, index, _, _, _ = _graph_reads(3, 11)
+    got, want = trav.graph_to_device(graph, "cpu"), jtrav.graph_to_device(graph)
+    for name in ("labels", "label_offsets", "out_indptr", "out_indices"):
+        a = getattr(got, name)
+        assert a.dtype == torch.int32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(want, name)))
+    assert got.max_out == want.max_out and (got.labels == 4).any()
+    sa, jsa = trav.seeds_to_device(index, "cpu"), jtrav.seeds_to_device(index)
+    assert sa.size == jsa.size == index.size
+    np.testing.assert_array_equal(sa.planes.numpy(), np.asarray(jsa.planes))
+    occ = trav.occ_from_planes(sa.planes)
+    assert occ.dtype == torch.int32
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jsa.occ))
+    rows = index.size // 32 + 1
+    np.testing.assert_array_equal(occ.numpy()[:, :rows], index.occ[:, :rows])
+
+
+def _refine_inputs(index, rng, n=3000):
+    """int32 lo <= hi in [0, V] at the edges (0, V, empty, one key, block
+    ends) and at random, and chars 0..3."""
+    V = index.size
+    lo = rng.randint(0, V + 1, n)
+    hi = np.minimum(lo + rng.choice([0, 1, 2, 31, 32, 33, V], n), V)
+    lo[:4], hi[:4] = (0, 0, V, 31), (V, 0, V, 32)
+    c = rng.randint(0, 4, n)
+    return [a.astype(np.int32) for a in (lo, hi, c)]
+
+
+def test_range_refine_matches_psi_tpu():
+    """range_refine and range_refine4 (their CPU wrappers, which run the
+    plain versions and count no launch) equal psi_tpu's _range_refine at
+    every depth, per char and for all four chars."""
+    graph, index, _, _, _ = _graph_reads(11, 13, n_reads=400)
+    sa, jsa = trav.seeds_to_device(index, "cpu"), jtrav.seeds_to_device(index)
+    lo, hi, c = _refine_inputs(index, np.random.RandomState(1))
+    n0 = trav.range_refine.launches, trav.range_refine4.launches
+    for depth in range(index.k):
+        want = jtrav._range_refine(jsa, depth, jnp.asarray(lo),
+                                   jnp.asarray(hi), jnp.asarray(c))
+        got = trav.range_refine(sa, depth, *map(torch.from_numpy, (lo, hi, c)))
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        lo4, hi4 = trav.range_refine4(sa, depth, torch.from_numpy(lo),
+                                      torch.from_numpy(hi))
+        assert lo4.shape == (len(lo), 4) and lo4.dtype == torch.int32
+        for ch in range(4):
+            w = jtrav._range_refine(jsa, depth, jnp.asarray(lo),
+                                    jnp.asarray(hi),
+                                    jnp.full(len(lo), ch, dtype=jnp.int32))
+            np.testing.assert_array_equal(lo4[:, ch].numpy(), np.asarray(w[0]))
+            np.testing.assert_array_equal(hi4[:, ch].numpy(), np.asarray(w[1]))
+    assert (trav.range_refine.launches, trav.range_refine4.launches) == n0
+
+
+def _starts(sn, so, cap):
+    return [np.resize(np.pad(a, (0, cap - len(a))), cap) for a in (sn, so)]
+
+
+def _both_traversals(graph, index, sn, so, k, cap, max_mm=0):
+    """psi_tpu's and the port's traverse_device (or _approx), on the same
+    zero-padded starts: two tuples of numpy arrays."""
+    snp, sop = _starts(sn, so, cap)
+    g, sa = jtrav.graph_to_device(graph), jtrav.seeds_to_device(index)
+    tg, tsa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+        index, "cpu")
+    jargs = (g, sa, jnp.asarray(snp), jnp.asarray(sop),
+             jnp.asarray(len(sn), dtype=jnp.int32), k, cap)
+    targs = (tg, tsa, torch.from_numpy(snp), torch.from_numpy(sop), len(sn),
+             k, cap)
+    if max_mm:
+        want = jtrav.traverse_device_approx(*jargs, max_mm)
+        got = trav.traverse_device_approx(*targs, max_mm)
+    else:
+        want = jtrav.traverse_device(*jargs)
+        got = trav.traverse_device(*targs)
+    return (tuple(np.asarray(a) for a in got),
+            tuple(np.asarray(a) for a in want))
+
+
+@pytest.mark.parametrize("seed,k", [(3, 12), (5, 32)])
+def test_traverse_device_matches_psi_tpu(seed, k):
+    """Survivors, their order, n_used and TraverserStats equal psi_tpu's
+    over the whole cap (padding slots included), and the survivors equal
+    the WalkTree probe's (the port's, which holds at k = 32)."""
+    graph, index, loci, sn, so = _graph_reads(seed, k, t_first=k == 32)
+    got, want = _both_traversals(graph, index, sn, so, k, 1 << 13)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    li, lo, hi, nu, ov, ts = got
+    assert not ov and nu > 0 and ts.dtype == np.int64
+    probe = trav.walks_match(trav.enumerate_walks(graph, sn, so, k),
+                             index.sorted_keys)
+    for a, b in zip((li, lo, hi), probe[:3]):
+        np.testing.assert_array_equal(a[:nu], b)
+    assert tuple(ts) == probe[3:]
+
+
+def test_traverse_device_overflow_matches_psi_tpu():
+    """At a cap the first fork overflows (exactly the loci), the flag and
+    every array equal psi_tpu's."""
+    graph, index, loci, sn, so = _graph_reads(3, 12)
+    got, want = _both_traversals(graph, index, sn, so, 12, len(sn))
+    assert got[4] and want[4]
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("max_mm", [0, 1])
+def test_traverse_device_packed_layout(max_mm):
+    """One [3*cap + 5] vector (locus_idx | lo | hi | n_used, overflow,
+    tstats), int64, equal to psi_tpu's int32 vector and to the unpacked
+    outputs."""
+    graph, index, loci, sn, so = _graph_reads(11, 10)
+    cap = 1 << 13
+    snp, sop = _starts(sn, so, cap)
+    tg, tsa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+        index, "cpu")
+    targs = (tg, tsa, torch.from_numpy(snp), torch.from_numpy(sop), len(sn),
+             10, cap)
+    packed = trav.traverse_device_packed(*targs, max_mm).numpy()
+    want = np.asarray(jtrav.traverse_device_packed(
+        jtrav.graph_to_device(graph), jtrav.seeds_to_device(index),
+        jnp.asarray(snp), jnp.asarray(sop),
+        jnp.asarray(len(sn), dtype=jnp.int32), 10, cap, max_mm))
+    assert packed.shape == (3 * cap + 5,) and packed.dtype == np.int64
+    np.testing.assert_array_equal(packed, want)
+    outs = (trav.traverse_device_approx(*targs, max_mm) if max_mm
+            else trav.traverse_device(*targs))
+    for i, a in enumerate(outs[:3]):
+        np.testing.assert_array_equal(packed[i * cap: (i + 1) * cap], a)
+    np.testing.assert_array_equal(packed[3 * cap: 3 * cap + 2],
+                                  [int(outs[3]), int(outs[4])])
+    if not max_mm:
+        np.testing.assert_array_equal(packed[3 * cap + 2:], outs[5])
+    else:
+        assert not packed[3 * cap + 2:].any()
+
+
+@pytest.mark.parametrize("max_mm", [1, 2])
+def test_traverse_device_approx_matches_psi_tpu(max_mm):
+    """The mismatch-tolerant traversal over the whole cap equals
+    psi_tpu's: survivors, order, budget-chosen chars, n_used and the
+    overflow flag (the forks per read character overflow this cap)."""
+    graph, index, loci, sn, so = _graph_reads(3, 12)
+    got, want = _both_traversals(graph, index, sn, so, 12, 1 << 13, max_mm)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert got[3] > 0 and got[4]
+
+
+def _sorted_hits(raw):
+    a = np.array(raw, dtype=np.int64).reshape(-1, 5)
+    return a[np.lexsort(a.T[::-1])]
+
+
+def test_traverse_and_traverse_host_match_psi_tpu():
+    """`traverse` (device traversal with overflow retry: the 1024 cap
+    doubles) and the host BFS mirror, exact and with 1 and 2 mismatches,
+    give psi_tpu's hit multisets; exact, the two routes agree."""
+    graph, index, loci, sn, so = _graph_reads(11, 11)
+    g, sa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+        index, "cpu")
+    got = _sorted_hits(trav.traverse(graph, g, sa, index, loci, 11, cap=1024))
+    want = _sorted_hits(jtrav.traverse(
+        graph, jtrav.graph_to_device(graph), jtrav.seeds_to_device(index),
+        index, loci, 11, cap=1024))
+    np.testing.assert_array_equal(got, want)
+    assert len(got) > 0
+    for m in (0, 1, 2):
+        host = _sorted_hits(trav.traverse_host(graph, index, loci, 11, m))
+        np.testing.assert_array_equal(host, _sorted_hits(
+            jtrav.traverse_host(graph, index, loci, 11, max_mismatches=m)))
+        if m == 0:
+            np.testing.assert_array_equal(host, got)
+        else:
+            assert len(host) > len(got)
