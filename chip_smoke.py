@@ -65,15 +65,20 @@ exits non-zero and prints no result):
     loci): the WalkTree probed on the host (NumPy) and on the card equal
     each other; `traverse_device` on the card, its k steps run under
     torch.cuda.set_sync_debug_mode("error") with the launch counters set
-    to 0 just before and read just after (range_refine once per step and
-    nothing else), gives the probe's survivors, order and TraverserStats;
-    range_refine against its plain version on every step's inputs of
-    that run, over the whole cap, with device, enqueued and plain times,
-    its bound, and the device operations of one plain step; the time of
-    each off-path form (host probe, device probe, device traversal); then
-    `traverse_device_approx` (m = 1, cap doubled until it fits) on the
-    card equal to it on the CPU, and range_refine4 against its plain
-    version on the final attempt's inputs, timed the same way;
+    to 0 just before and read just after (traverse_step once per step
+    and nothing else), gives the probe's survivors, order and
+    TraverserStats; traverse_step against its plain version on every
+    step's inputs of that run, over the whole cap, with the kernel's
+    device time per step beside its bound, and the fused and plain
+    traversals' wall, busy, enqueued and peak-memory figures;
+    range_refine, which no route launches now, against its plain version
+    on the rank inputs of every step of the plain traversal, with device,
+    enqueued and plain times, its bound, and the device operations of one
+    plain step; the time of each off-path form (host probe, device probe,
+    device traversal); then `traverse_device_approx` (m = 1, cap doubled
+    until it fits) on the card equal to it on the CPU, and range_refine4
+    against its plain version on the final attempt's inputs, timed the
+    same way;
  8. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level, and nothing else;
@@ -81,7 +86,7 @@ exits non-zero and prints no result):
     only the LF-step kernel, once per chunk and LF step, and a lexsorted
     hit stream byte-identical to phase 8's;
 10. [cli-trav] the same command with PSI_TRAV_CACHE=0 (the device
-    traversal every chunk): only trie_level and range_refine (k launches
+    traversal every chunk): only trie_level and traverse_step (k launches
     per chunk and attempt), and a lexsorted hit stream byte-identical to
     phase 8's;
 11. the same command with --device cpu (the plain versions): the
@@ -90,7 +95,18 @@ exits non-zero and prints no result):
     reads: only trie_level (one chunk's levels) and range_refine4 (k per
     attempt), with its hits and rates; then cuda and cpu on the first
     5,000 reads give byte-identical lexsorted hit streams;
-13. counts of 10,000 sampled distinct keys against FMIndex.backward_search.
+13. counts of 10,000 sampled distinct keys against FMIndex.backward_search;
+14. [offpath-scale] the dense cell (psi_tpu_torch/tools/dense.py: 5 Mbp,
+    a bubble every ~50 bp, ~3 x 10^5 loci, the WalkTree over its cap of
+    2^23 nodes, so traverse_device is the route): (a) the traversal as in
+    phase 7, traverse_step bit-equal to plain at every step over the
+    whole cap, both forms timed; (d) the WalkTree probe with
+    PSI_TRAV_CACHE_CAP raised past the tree, equal to the traversal and
+    timed beside it as each route runs (a measurement, not a route);
+    (b) the CLI on one chunk: only trie_level and traverse_step, then
+    cuda and cpu on its first 5,000 reads give byte-identical lexsorted
+    hit streams; (c) at 10^6 loci or more (10 Mbp, a bubble every ~33 bp)
+    the traversal alone, as in (a), with no FM index built.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -118,6 +134,8 @@ from psi_tpu_torch.tools.timing import (  # noqa: E402
     row_sectors)
 
 N_SAMPLED_KEYS = 10_000
+DENSE_MIN_LOCI = 200_000   # the dense cell's loci, at the least
+SCALE_MIN_LOCI = 1_000_000  # the scale point's loci, at the least
 N_MISMATCH_READS = 5_000   # reads of the --mismatches cuda = cpu check
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
@@ -441,7 +459,11 @@ KERNELS = {
                     "psi_tpu_torch/csrc/occ_gather.cu", [10, 11],
                     ["psi_tpu/ops/fm_pallas.py:31",
                      "psi_tpu/ops/fm_pallas.py:200"]),
-    # no TPU kernel: psi_tpu's _range_refine is plain XLA
+    # no TPU kernel: psi_tpu's _range_refine and traverse_device are
+    # plain XLA
+    "traverse_step": (("traverse", "traverse_step"),
+                      "psi_tpu_torch/csrc/traverse_step.cu", [],
+                      ["psi_tpu/ops/traverse.py:267"]),
     "range_refine": (("traverse", "range_refine"),
                      "psi_tpu_torch/csrc/range_refine.cu", [],
                      ["psi_tpu/ops/traverse.py:230"]),
@@ -470,6 +492,10 @@ LIBRARY = {
     "occ_lf_pair": "none: a gather of one word of lo's row and one of hi's, "
                    "column chosen per key, and C[c] added; no single call "
                    "gathers by row and column and adds",
+    "traverse_step": "none: a fork by prefix sum and searchsorted, clipped "
+                     "gathers of edges and labels, range_refine's rank and a "
+                     "second prefix-sum compaction; no single call, and no "
+                     "popcount operator",
     "range_refine": "none: per state two occ-row and plane-word gathers, "
                     "four masked popcounts at lo and at hi, a prefix sum "
                     "over the chars and a pick by the state's char; torch "
@@ -479,9 +505,10 @@ LIBRARY = {
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 #: entry points that no route of the port runs (backward_search_sorted
-#: now steps with rank_lf_pair): checked and timed on a replay of their
-#: contract, with 0 launches on any path
-OFF_PATH = {"rank"}
+#: now steps with rank_lf_pair, traverse_device with traverse_step):
+#: checked and timed on a replay of their contract, with 0 launches on
+#: any path
+OFF_PATH = {"rank", "range_refine"}
 
 
 def _wrappers() -> dict:
@@ -1100,19 +1127,37 @@ def recorded(module, name: str):
     its launches on the module attribute, so the recorder carries the
     count and hands it back at the end."""
     orig = getattr(module, name)
+    counted = hasattr(orig, "launches")
     calls = []
 
     def recorder(*args):
         calls.append(args)
         return orig(*args)
 
-    recorder.launches = orig.launches
+    if counted:
+        recorder.launches = orig.launches
     setattr(module, name, recorder)
     try:
         yield calls
     finally:
         setattr(module, name, orig)
-        orig.launches = recorder.launches
+        if counted:
+            orig.launches = recorder.launches
+
+
+@contextlib.contextmanager
+def plain_steps():
+    """Within the block, traverse_device steps with traverse_step_plain:
+    on the card, the plain step's torch operations and
+    range_refine_plain's, launched one by one."""
+    from psi_tpu_torch.ops import traverse as trav
+
+    orig = trav.traverse_step
+    trav.traverse_step = trav.traverse_step_plain
+    try:
+        yield
+    finally:
+        trav.traverse_step = orig
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -1163,11 +1208,159 @@ def approx_packed(finder, g, sa, k: int, device):
         cap *= 2
 
 
-def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds that fn() takes to return, each run started
+    on an idle card: for a function with no host sync, what it costs to
+    enqueue its work."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return total * 1e3 / reps
+
+
+def peak_mb(fn) -> float:
+    """Device memory that one fn() allocates at its peak beyond what was
+    allocated before it (torch.cuda.max_memory_allocated), in MB."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
+def step_work(n_used: int, new_n: int, n2: int, cap: int):
+    """One traverse_step launch: (bytes, operations, live bytes). The
+    live parents' five int32 fields read and every slot of the next
+    state written (the contract writes the whole cap, padding included);
+    the live bytes count the survivors' slots only. The graph arrays and
+    the seeds index stay in L2 and are not counted. Operations: about 60
+    integer operations per child formed (edge and label indexing, the
+    rank's four masked popcounts at each end and the char pick), counted
+    from the kernel source."""
+    formed = min(new_n, cap)
+    return 20 * n_used + 20 * cap, 60 * formed, 20 * n_used + 20 * n2
+
+
+def traversal_record(finder, index, k: int, tag: str):
+    """The exact device traversal over the finder's loci and the chunk's
+    seeds index on the card, the cap doubled from the route's until it
+    fits, as the finder's collect does. Each attempt runs under sync
+    debug mode "error" with the counters set to 0 just before and read
+    just after: k traverse_step launches and nothing else. Then
+    traverse_step against traverse_step_plain at every step's inputs of
+    the final attempt, over the whole cap, and both forms timed: wall
+    (host clock to a synchronize), device busy (torch.profiler),
+    enqueued per step, peak memory; the kernel's device time per step by
+    CUDA events beside its bound. Returns (record, outputs on the host)."""
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+
+    n = len(finder.starting_loci)
+    g = finder._get_graph_arrays()
+    sa = trav.seeds_to_device(index, finder.device)
+    cap = max(1 << 15, 1 << (n - 1).bit_length())
+    attempts = 0
+    while True:
+        attempts += 1
+        sn_d, so_d = finder._get_loci_device(cap)
+        torch.cuda.synchronize()
+        reset_counters()
+        with recorded(trav, "traverse_step") as calls:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got = read_counters()
+        require(got == {**ZERO_COUNTS, "traverse_step": k},
+                f"traverse_device launched {got}, expected {k} traverse_step")
+        out = tuple(a.cpu().numpy() for a in out)
+        if not out[4]:
+            break
+        cap *= 2
+    err, steps = 0, []
+    for c in calls:
+        (gs, *gc), (ws, *wc) = (trav.traverse_step(*c),
+                                trav.traverse_step_plain(*c))
+        err = max(err, *(max_abs_err(a, b)
+                         for a, b in zip((*gs, *gc), (*ws, *wc))))
+        steps.append((int(c[4]), int(wc[0]), int(wc[1])))
+    require(err == 0, f"traverse_step differs from its plain version by {err}")
+
+    def fused():
+        return trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
+
+    def plain():
+        with plain_steps():
+            return trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
+
+    forms = {}
+    for name, fn in (("fused", fused), ("plain", plain)):
+        forms[name] = {
+            "peak_mb": peak_mb(fn),
+            "wall_ms": wall_ms(lambda: (fn(), torch.cuda.synchronize()), 3),
+            "busy_ms": busy_ms(fn, 1),
+            "enqueued_us_per_step": 1e3 * host_ms(fn, 3) / k,
+        }
+    # the fused form's device time by CUDA events too, beside the
+    # profiler's sum (the plain form's ~4,400 launches a traversal overrun
+    # the launch queue that the events' spin kernel needs)
+    forms["fused"]["device_ms"] = cuda_ms(fused, 3)
+    forms["plain"]["device_ops_per_step"] = device_ops(
+        lambda: trav.traverse_step_plain(*calls[0]))
+    kernel_ms = cuda_ms(lambda: [trav.traverse_step(*c) for c in calls],
+                        5) / k
+    work = [step_work(nu, nn, n2, cap) for nu, nn, n2 in steps]
+    bound_ms, bound_by, bytes_moved, ops = mean_bound(
+        [(b, o) for b, o, _ in work])
+    live_bound_ms = bound(sum(w[2] for w in work) / k, ops)[0]
+    rec = {"max_abs_err": err, "ms": kernel_ms,
+           "enqueued_ms": forms["fused"]["enqueued_us_per_step"] / 1e3,
+           "plain_ms": forms["plain"]["busy_ms"] / k, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+           "ops": ops, "live_bound_ms": live_bound_ms,
+           "shape": f"{cap} slots x {k} steps of traverse_device, {n} loci",
+           "loci": n, "cap": cap, "attempts": attempts, "survivors":
+           int(out[3]), "steps": steps, "forms": forms}
+    f, p = forms["fused"], forms["plain"]
+    phase(tag, f"traverse_device over {n} loci: cap {cap} after {attempts} "
+          f"attempt(s), {rec['survivors']} survivors; {k} traverse_step "
+          f"launches an attempt and nothing else, no host sync in its steps;"
+          f" traverse_step bit-equal to plain at all {k} steps over the "
+          f"whole cap (live parents {steps[0][0]} .. {steps[-1][0]})")
+    phase(tag, f"traverse_step: {1e3 * kernel_ms:.3f} us/step on the device "
+          f"(enqueued {f['enqueued_us_per_step']:.3f}, plain busy "
+          f"{1e3 * rec['plain_ms']:.3f}); bound {1e3 * bound_ms:.3f} us by "
+          f"{bound_by} ({bytes_moved / 1e6:.2f} MB/step), live-only "
+          f"{1e3 * live_bound_ms:.3f} us")
+    for name, fm in forms.items():
+        events = (f", device by events {fm['device_ms']:.3f} ms"
+                  if "device_ms" in fm else
+                  f", {fm['device_ops_per_step']} device operations a step")
+        phase(tag, f"{name} traversal: wall {fm['wall_ms']:.3f} ms, device "
+              f"busy {fm['busy_ms']:.3f} ms{events}, enqueued "
+              f"{fm['enqueued_us_per_step']:.2f} us/step, peak "
+              f"{fm['peak_mb']:.1f} MB")
+    return rec, out
+
+
+def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
     """The off-path traversal on chunk 1: the WalkTree probes, the exact
-    and the mismatch-tolerant device traversals, and the range-refine
-    kernels on their inputs. Returns the records of range_refine and
-    range_refine4 and the phase's facts."""
+    (fused, traverse_step) and the mismatch-tolerant device traversals,
+    and the range-refine kernels on their inputs. Returns the records of
+    range_refine, range_refine4 and traverse_step and the phase's
+    facts."""
     import numpy as np
     import torch
 
@@ -1189,27 +1382,12 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
           f"and uploaded in {time.monotonic() - t0:.2f} s); {len(host[0])} "
           f"surviving states; device probe equal to the host probe")
 
-    # the exact traversal, its k steps under sync debug mode "error"
+    # the exact traversal, one traverse_step a step, against the probe
     g = finder._get_graph_arrays()
     sa = trav.seeds_to_device(index, dev)
-    cap = max(1 << 15, 1 << (n - 1).bit_length())
-    while True:
-        sn_d, so_d = finder._get_loci_device(cap)
-        torch.cuda.synchronize()
-        reset_counters()
-        with recorded(trav, "range_refine") as calls:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                out = trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            got = read_counters()
-        require(got == {**ZERO_COUNTS, "range_refine": k},
-                f"traverse_device launched {got}, expected {k} range_refine")
-        li, lo, hi, nu, ov, ts = (a.cpu().numpy() for a in out)
-        if not ov:
-            break
-        cap *= 2
+    step_rec, (li, lo, hi, nu, ov, ts) = traversal_record(finder, index, k,
+                                                          "offpath")
+    cap = step_rec["cap"]
     nu = int(nu)
     require(np.array_equal(li[:nu], host[0])
             and np.array_equal(lo[:nu], host[1])
@@ -1218,8 +1396,15 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
             "traverse_device differs from the WalkTree probe")
     phase("offpath", f"traverse_device at cap {cap}: {nu} survivors, order "
           f"and TraverserStats {tuple(int(v) for v in ts)} equal to the "
-          f"probe's; {k} range_refine launches, no host sync in its steps")
+          f"probe's")
 
+    # range_refine, which no route launches now, on the rank inputs of
+    # the plain step's traversal on the card
+    sn_d, so_d = finder._get_loci_device(cap)
+    with plain_steps(), recorded(trav, "range_refine_plain") as calls:
+        trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
+    calls = list(calls)
+    require(len(calls) == k, f"the plain traversal ran {len(calls)} ranks")
     err = max(max(max_abs_err(a, b) for a, b in zip(
         trav.range_refine(*c), trav.range_refine_plain(*c))) for c in calls)
     require(err == 0, f"range_refine differs from its plain version by {err}")
@@ -1227,11 +1412,12 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
         "range_refine", lambda: [trav.range_refine(*c) for c in calls],
         lambda: [trav.range_refine_plain(*c) for c in calls], k,
         [refine_work(*c) for c in calls], err,
-        f"{cap} slots x {k} steps of traverse_device", plain_reps=1,
-        tag="offpath")
+        f"{cap} slots x {k} steps of the plain traversal's rank",
+        plain_reps=1, tag="offpath")
     rec["plain_ops_per_step"] = device_ops(
         lambda: trav.range_refine_plain(*calls[0]))
-    rec["launches_per_traversal"] = k
+    rec["launches_per_traversal"] = 0
+    rec["replay_launches"] = k
 
     # the three off-path forms of one chunk, each as the route pays it
     sn_d, so_d = finder._get_loci_device(cap)
@@ -1301,7 +1487,7 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict]:
              "approx": {"cap": cap4, "attempts": attempts,
                         "survivors": n_approx, "cuda_s": approx_s,
                         "cpu_s": cpu_s}}
-    return rec, rec4, facts
+    return rec, rec4, step_rec, facts
 
 
 # --- phases 8 to 12: the CLI ---------------------------------------------------
@@ -1371,6 +1557,148 @@ def summarize(rep: dict, device: str, wall: float) -> dict:
         phase(f"cli-{device}", f"sustained over chunks 2-{len(chunks)}: "
               f"{keys / span:.1f} kmer-queries/s, {hits / span:.1f} hits/s")
     return res
+
+
+# --- phase 14: the off-path traversal at scale ------------------------------
+
+def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
+    """[offpath-scale]: the dense cell (tools/dense.py), where the WalkTree
+    exceeds its cap and traverse_device is the route: (a) the traversal,
+    fused and plain, traverse_step bit-equal to plain at every step;
+    (d) the WalkTree probe with PSI_TRAV_CACHE_CAP raised past the tree,
+    timed beside the fused traversal as the route runs it, and equal to
+    it; (b) the CLI on one chunk (trie_level and traverse_step only),
+    then cuda = cpu on its first reads; (c) the traversal alone at 10^6
+    loci or more. Returns (traverse_step's record on the dense cell, the
+    phase's facts, traverse_step launches of the dense CLI run)."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+    from psi_tpu_torch.tools import dense
+
+    tag = "offpath-scale"
+    t_phase = t0 = time.monotonic()
+    gfa, fastq = dense.make_dense(tmp, dense.REF_LEN, dense.VARIANT_RATE,
+                                  n_reads)
+    finder, index = dense.offpath_inputs(gfa, fastq, "cuda", n_reads)
+    n, k = len(finder.starting_loci), finder.seed_len
+    made_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    require(finder._get_trav_tree() is None,
+            "the dense cell's WalkTree fits its cap")
+    attempt_s = time.monotonic() - t0
+    require(n >= DENSE_MIN_LOCI, f"the dense cell has {n} loci, under "
+            f"{DENSE_MIN_LOCI}")
+    phase(tag, f"dense cell ({dense.REF_LEN} bp, variant rate "
+          f"{dense.VARIANT_RATE}): {n} loci, {index.size} seeds of "
+          f"{n_reads} reads (made and loaded in {made_s:.1f} s); the WalkTree "
+          f"build gives up past its cap of {trav.NODE_CAP} nodes after "
+          f"{attempt_s:.2f} s, once per loci set (the CLI's chunk 1 pays it "
+          f"in its off-path leg)")
+
+    # (a) the traversal, fused and plain
+    rec, (li, lo, hi, nu, _, ts) = traversal_record(finder, index, k, tag)
+    nu, cap, n_seeds = int(nu), rec["cap"], index.size
+
+    # (d) the WalkTree probe with the cap raised: a measurement, not a route
+    with env("PSI_TRAV_CACHE_CAP", str(1 << 27)):
+        finder._trav_tree = None
+        t0 = time.monotonic()
+        dtree = finder._get_trav_tree()
+        build_s = time.monotonic() - t0
+    require(dtree is not None, "the dense cell's WalkTree exceeds 2^27 nodes")
+    tree_nodes = finder._trav_tree[1].n_nodes
+    keys = index.sorted_keys
+    probe = trav.walks_match_device(dtree, keys)
+    require(np.array_equal(probe[0], li[:nu])
+            and np.array_equal(probe[1], lo[:nu])
+            and np.array_equal(probe[2], hi[:nu])
+            and tuple(probe[3:]) == tuple(int(v) for v in ts),
+            "the WalkTree probe differs from the fused traversal")
+    g = finder._get_graph_arrays()
+    sn_d, so_d = finder._get_loci_device(cap)
+    route = {
+        "WalkTree probe": lambda: trav.walks_match_device(dtree, keys),
+        "fused traversal": lambda: trav.traverse_device_packed(
+            g, trav.seeds_to_device(index, finder.device), sn_d, so_d, n, k,
+            cap).cpu(),
+    }
+    route_ms = {name: wall_ms(fn, 3) for name, fn in route.items()}
+    route_busy = {name: busy_ms(fn, 1) for name, fn in route.items()}
+    phase(tag, f"WalkTree of {tree_nodes} nodes (PSI_TRAV_CACHE_CAP raised) "
+          f"built and uploaded in {build_s:.1f} s, its probe equal to the "
+          f"traversal; per chunk, as each route runs: "
+          + "; ".join(f"{name} {route_ms[name]:.3f} ms (busy "
+                      f"{route_busy[name]:.3f})" for name in route))
+    finder._trav_tree = None
+    del dtree, probe, route, finder
+    torch.cuda.empty_cache()
+
+    # (b) the CLI on one chunk, then cuda = cpu on its first reads
+    reset_counters()
+    hits, rep, wall = run_cli(gfa, fastq, tmp, "cuda", n_reads, tag="_dense")
+    got = read_counters()
+    (c1,) = rep["chunks"]
+    steps = got["traverse_step"]
+    require(got == {**ZERO_COUNTS, "trie_level": got["trie_level"],
+                    "traverse_step": steps}
+            and got["trie_level"] > 0 and steps >= k and steps % k == 0,
+            f"the dense cell's CLI run launched {got}, expected trie_level "
+            f"and a multiple of {k} traverse_step only")
+    require(c1["hits_off"] > 0, "the dense cell's CLI found no off-path hit")
+    small = head_fastq(fastq, os.path.join(tmp, "dense_small.fastq"),
+                       N_MISMATCH_READS)
+    (h_cuda, _, w_cuda), (h_cpu, _, w_cpu) = (
+        run_cli(gfa, small, tmp, device, n_reads, tag="_dense_small")
+        for device in ("cuda", "cpu"))
+    require(len(h_cuda) > 0 and h_cuda.tobytes() == h_cpu.tobytes(),
+            f"the dense cell on {N_MISMATCH_READS} reads: cuda "
+            f"{len(h_cuda)} vs cpu {len(h_cpu)} hits")
+    cli = {"reads": c1["reads"], "keys": c1["keys"], "hits_on": c1["hits_on"],
+           "hits_off": c1["hits_off"], "query_s": c1["query_s"],
+           "onpath_s": c1["onpath_s"], "offpath_s": c1["offpath_s"],
+           "prepare_s": c1["prepare_s"], "produce_s": c1["produce_s"],
+           "wall_s": wall, "kmer_queries_per_s": c1["keys"] / c1["query_s"],
+           "launches": got, "small": {"reads": N_MISMATCH_READS,
+                                      "hits": len(h_cuda),
+                                      "cuda_wall_s": w_cuda,
+                                      "cpu_wall_s": w_cpu}}
+    phase(tag, f"CLI on the dense cell: {c1['reads']} reads, {c1['keys']} "
+          f"keys, {len(hits)} hits ({c1['hits_off']} off path); query "
+          f"{c1['query_s']:.3f} s (on-path {c1['onpath_s']:.3f}, off-path "
+          f"{c1['offpath_s']:.3f}), {cli['kmer_queries_per_s']:.1f} "
+          f"kmer-queries/s, wall {wall:.1f} s; launches {got}; first "
+          f"{N_MISMATCH_READS} reads: cuda ({w_cuda:.1f} s) and cpu "
+          f"({w_cpu:.1f} s) lexsorted hit streams identical "
+          f"({len(h_cuda)} hits)")
+
+    # (c) the traversal alone at 10^6 loci or more
+    t0 = time.monotonic()
+    gfa, fastq = dense.make_dense(tmp, dense.SCALE_REF_LEN,
+                                  dense.SCALE_VARIANT_RATE, n_reads)
+    finder, index = dense.offpath_inputs(gfa, fastq, "cuda", n_reads)
+    n_big = len(finder.starting_loci)
+    require(n_big >= SCALE_MIN_LOCI, f"the scale point has {n_big} loci, "
+            f"under {SCALE_MIN_LOCI}")
+    phase(tag, f"scale point ({dense.SCALE_REF_LEN} bp, variant rate "
+          f"{dense.SCALE_VARIANT_RATE}): {n_big} loci, {index.size} seeds "
+          f"(made and loaded in {time.monotonic() - t0:.1f} s)")
+    big, _ = traversal_record(finder, index, k, tag)
+    del finder
+    torch.cuda.empty_cache()
+    phase(tag, f"phase {time.monotonic() - t_phase:.1f} s")
+    facts = {"dense": {"ref_len": dense.REF_LEN,
+                       "variant_rate": dense.VARIANT_RATE, "loci": n,
+                       "seeds": n_seeds, "tree_nodes": tree_nodes,
+                       "tree_attempt_s": attempt_s,
+                       "tree_build_s": build_s, "route_ms": route_ms,
+                       "route_busy_ms": route_busy, "traversal": rec,
+                       "cli": cli},
+             "scale": {"ref_len": dense.SCALE_REF_LEN,
+                       "variant_rate": dense.SCALE_VARIANT_RATE,
+                       "loci": n_big, "traversal": big}}
+    return rec, facts, steps
 
 
 # --- phase 13: sampled counts against the host FM index ---------------------------
@@ -1460,7 +1788,8 @@ def main(argv=None) -> int:
          extra["gather"]) = gather_phase(finder, reads, index)
         launches["occ_gather"] = extra["gather"]["blocked_launches"]
         (records["range_refine"], records["range_refine4"],
-         extra["offpath"]) = offpath_phase(finder, index)
+         extra["traverse_step_bacterial"], extra["offpath"]) = offpath_phase(
+            finder, index)
         extra.update(profile_query(finder, seeds, index))
 
         reset_counters()
@@ -1512,14 +1841,14 @@ def main(argv=None) -> int:
             trav_launches = read_counters()
         trav_res = summarize(rep_t, "trav", wall)
         n_trav = len(rep_t["chunks"])
-        steps = trav_launches["range_refine"]
+        steps = trav_launches["traverse_step"]
         require(trav_launches == {**ZERO_COUNTS,
                                   "trie_level": n_trav * extra["levels"],
-                                  "range_refine": steps}
+                                  "traverse_step": steps}
                 and steps >= n_trav * SEED_LEN and steps % SEED_LEN == 0,
                 f"the PSI_TRAV_CACHE=0 CLI run launched {trav_launches}, "
                 f"expected {n_trav * extra['levels']} trie_level and a "
-                f"multiple of {SEED_LEN} range_refine (at least "
+                f"multiple of {SEED_LEN} traverse_step (at least "
                 f"{n_trav * SEED_LEN})")
         require(hits_t.tobytes() == hits_cuda.tobytes(),
                 f"device-traversal hit stream differs from the WalkTree "
@@ -1529,7 +1858,7 @@ def main(argv=None) -> int:
               f"off-path {sum(c['offpath_s'] for c in rep_t['chunks']):.4f} "
               f"s over {n_trav} chunks (WalkTree route "
               f"{sum(c['offpath_s'] for c in rep_cuda['chunks']):.4f})")
-        launches["range_refine"] = steps
+        extra["cli_trav_traverse_step_launches"] = steps
 
         hits_cpu, rep_cpu, wall = run_cli(gfa, fastq, tmp, "cpu", args.chunk)
         summarize(rep_cpu, "cpu", wall)
@@ -1595,6 +1924,11 @@ def main(argv=None) -> int:
         present = check_sampled_counts(finder, uniq, N_SAMPLED_KEYS)
         phase("counts", f"{min(N_SAMPLED_KEYS, len(uniq))} sampled keys "
               f"({present} present) agree with FMIndex.backward_search")
+        del finder, reads, seeds, index
+        torch.cuda.empty_cache()
+
+        (records["traverse_step"], extra["offpath_scale"],
+         launches["traverse_step"]) = offpath_scale_phase(tmp, args.chunk)
 
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
@@ -1608,8 +1942,12 @@ def main(argv=None) -> int:
              "occ_gather": "gather_occ_rows_blocked, one call",
              "occ_lf_pair": f"psikt CLI with PSI_STREAM=0 (the gather "
                             f"route), {len(rep_g['chunks'])} chunks",
-             "range_refine": f"psikt CLI with PSI_TRAV_CACHE=0 (the device "
-                             f"traversal), {n_trav} chunks",
+             "range_refine": "none: traverse_device runs traverse_step; "
+                             "its numbers come from a replay over the rank "
+                             "inputs of the plain step's traversal of "
+                             "chunk 1's loci",
+             "traverse_step": f"psikt CLI on the dense cell (WalkTree over "
+                              f"its cap), one chunk of {args.chunk} reads",
              "range_refine4": "psikt CLI with --mismatches 1, one chunk of "
                               f"{args.chunk} reads"}
     kernels = []
@@ -1666,6 +2004,21 @@ def main(argv=None) -> int:
         if kname in ("range_refine", "range_refine4"):
             kernels[-1].update({k: rec[k] for k in (
                 "plain_ops_per_step", "launches_per_traversal")})
+        if kname == "range_refine":
+            kernels[-1]["replay_launches"] = rec["replay_launches"]
+        if kname == "traverse_step":
+            scale = extra["offpath_scale"]
+            kernels[-1]["live_bound_ms"] = rec["live_bound_ms"]
+            kernels[-1]["cells"] = {
+                cell: {k: r[k] for k in (
+                    "loci", "cap", "attempts", "survivors", "ms",
+                    "enqueued_ms", "plain_ms", "bound_ms", "live_bound_ms",
+                    "forms")}
+                for cell, r in (
+                    ("bacterial", extra["traverse_step_bacterial"]),
+                    ("dense", rec), ("scale", scale["scale"]["traversal"]))}
+            kernels[-1]["cli_trav_launches"] = extra[
+                "cli_trav_traverse_step_launches"]
     summary = {
         "kernels": kernels,
         "card": card,

@@ -182,19 +182,24 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def call(name: str, argtypes: list, restype, *args):
+    """Call C entry `name` of the kernel library, declared with
+    `argtypes` and `restype` at its first call, and return its result."""
+    fn = _bound.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _bound[name] = fn
+    return fn(*args)
+
+
 def launch(name: str, argtypes: list, *args) -> None:
     """Call C entry `name` (declared with `argtypes`) and raise on a
     non-zero cudaError_t."""
-    lib = load()
-    fn = _bound.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _bound[name] = fn
-    rc = fn(*args)
+    rc = call(name, argtypes, ctypes.c_int, *args)
     if rc != 0:
-        msg = lib.psi_cuda_error_string(rc).decode()
+        msg = load().psi_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")
 
 

@@ -1,7 +1,8 @@
 // Range refine over the chunk's seeds index: the rank step of the
 // off-path frontier traversal (ops/traverse.py).
 //   psi_range_refine   [lo, hi) of each state narrowed by its char c
-//                      (traverse_device, one launch per step);
+//                      (the rank of traverse_device's step; on the card
+//                      that step runs fused in traverse_step.cu);
 //   psi_range_refine4  [lo, hi) narrowed by each char 0..3, written as
 //                      [N, 4] pairs (traverse_device_approx, one launch
 //                      per step).
@@ -13,19 +14,9 @@
 // the SWAR popcounts, gathers and prefix sums that one thread per state
 // does here.
 //
-// Per depth d the seeds index holds, for every 32-key block b,
-//   occ[d, b]    int32 x 4  the count of each char in keys [0, 32 b)
-//   planes[d, b] int32 x 2  bit i of word p is bit p of the depth-d char
-//                           of key 32 b + i
-// so #(char c in keys [0, i)) = occ[d, i/32][c] + popcount(match_c &
-// ((1 << i%32) - 1)). One thread per state reads lo, hi (and c), loads
-// the occ row (one 16-byte load) and the plane pair (one 8-byte load) of
-// lo's block and of hi's block, and forms the four counts at each end.
-// The mask is computed in uint32: psi_tpu's int32 `(1 << 31) - 1` relies
-// on wrap-around, which is undefined for a signed int in C++. The new
-// range of char c starts after the keys in [lo, hi) whose char is below
-// c (the keys are sorted, so at each depth a range's children are
-// contiguous, in char order).
+// One thread per state reads lo, hi (and c) and forms the four counts at
+// each end by seeds_rank.cuh's seeds_counts_at: the occ row (one 16-byte
+// load) and the plane pair (one 8-byte load) of lo's block and of hi's.
 //
 // Every slot of the state vectors is computed, padding slots included, as
 // the plain version computes them, so the two are bit-equal over the whole
@@ -43,25 +34,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "seeds_rank.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// Count of each char 0..3 among the depth's keys [0, i).
-__device__ __forceinline__ int4 counts_at(const int4* __restrict__ occ_d,
-                                          const int2* __restrict__ planes_d,
-                                          int32_t i) {
-  const int b = i >> 5;
-  const int4 base = __ldg(occ_d + b);
-  const int2 pw = __ldg(planes_d + b);
-  const uint32_t p0 = static_cast<uint32_t>(pw.x);
-  const uint32_t p1 = static_cast<uint32_t>(pw.y);
-  const uint32_t below = (1u << (i & 31)) - 1u;
-  return make_int4(base.x + __popc(~p0 & ~p1 & below),
-                   base.y + __popc(p0 & ~p1 & below),
-                   base.z + __popc(~p0 & p1 & below),
-                   base.w + __popc(p0 & p1 & below));
-}
 
 __global__ void range_refine_kernel(const int4* __restrict__ occ_d,
                                     const int2* __restrict__ planes_d,
@@ -72,17 +49,10 @@ __global__ void range_refine_kernel(const int4* __restrict__ occ_d,
                                     int32_t* __restrict__ hi_out, int n) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
-  const int32_t l = __ldg(lo + s);
-  const int ch = __ldg(c + s);
-  const int4 a = counts_at(occ_d, planes_d, l);
-  const int4 z = counts_at(occ_d, planes_d, __ldg(hi + s));
-  const int n0 = z.x - a.x, n1 = z.y - a.y, n2 = z.z - a.z, n3 = z.w - a.w;
-  // keys of chars below ch come first; then ch's own
-  const int below = (ch > 0 ? n0 : 0) + (ch > 1 ? n1 : 0) + (ch > 2 ? n2 : 0);
-  const int count = ch == 0 ? n0 : ch == 1 ? n1 : ch == 2 ? n2 : n3;
-  const int32_t new_lo = l + below;
-  lo_out[s] = new_lo;
-  hi_out[s] = new_lo + count;
+  const int2 r = seeds_refine(occ_d, planes_d, __ldg(lo + s), __ldg(hi + s),
+                              __ldg(c + s));
+  lo_out[s] = r.x;
+  hi_out[s] = r.y;
 }
 
 __global__ void range_refine4_kernel(const int4* __restrict__ occ_d,
@@ -94,8 +64,8 @@ __global__ void range_refine4_kernel(const int4* __restrict__ occ_d,
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= n) return;
   const int32_t l = __ldg(lo + s);
-  const int4 a = counts_at(occ_d, planes_d, l);
-  const int4 z = counts_at(occ_d, planes_d, __ldg(hi + s));
+  const int4 a = seeds_counts_at(occ_d, planes_d, l);
+  const int4 z = seeds_counts_at(occ_d, planes_d, __ldg(hi + s));
   const int n0 = z.x - a.x, n1 = z.y - a.y, n2 = z.z - a.z, n3 = z.w - a.w;
   const int4 start = make_int4(l, l + n0, l + n0 + n1, l + n0 + n1 + n2);
   lo4[s] = start;

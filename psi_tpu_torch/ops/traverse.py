@@ -24,12 +24,17 @@ Kernel, behind wrappers that run the plain PyTorch version for CPU
 tensors, launch the kernel for CUDA tensors (raising on any other device)
 and count those launches in `.launches`:
 
-  range_refine   csrc/range_refine.cu  lo', hi' of one char per state
-  range_refine4  csrc/range_refine.cu  lo', hi' of all four chars
+  traverse_step  csrc/traverse_step.cu  one whole step of traverse_device
+  range_refine   csrc/range_refine.cu   lo', hi' of one char per state
+  range_refine4  csrc/range_refine.cu   lo', hi' of all four chars
 
-psi_tpu's `_range_refine` is plain XLA; the port has a kernel for it
-because torch has no popcount operator, so the plain version spends some
-tens of device operations per step on what one launch does.
+psi_tpu's `_range_refine` and `traverse_device` are plain XLA; the port
+has kernels for them because torch has no popcount operator, so the plain
+versions spend some tens of device operations per step on what one launch
+does, and because eager torch pays a launch for each of the ~45 operations
+of a step. `traverse_device` runs `traverse_step`, fork, rank and
+compaction in one launch; `range_refine` is the rank of its plain version
+`traverse_step_plain` and keeps its own kernel and chip check.
 
 Departures from psi_tpu:
   * `walks_match` probes the upper end of a prefix range as
@@ -45,6 +50,7 @@ Departures from psi_tpu:
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, NamedTuple, Tuple
 
 import numpy as np
@@ -494,6 +500,148 @@ def _label(g: GraphArrays, node, off):
     return g.labels[pos.long()]
 
 
+class TraverseState(NamedTuple):
+    """The exact traversal's state between steps, on one device: the
+    frontier (slots < n_used in use, the rest padding), the overflow flag
+    and the TraverserStats so far."""
+
+    locus_idx: torch.Tensor  # int32 [cap] starting locus of each state
+    node: torch.Tensor       # int32 [cap]
+    off: torch.Tensor        # int32 [cap] offset of the next char
+    lo: torch.Tensor         # int32 [cap] seeds range
+    hi: torch.Tensor         # int32 [cap]
+    overflow: torch.Tensor   # bool 0-d: some step had more children than cap
+    tstats: torch.Tensor     # int64 [3]: go-downs, ended, summed lengths
+
+
+def traverse_step_plain(g: GraphArrays, seeds: SeedsArrays, t: int,
+                        state: TraverseState, n_used, cap: int):
+    """Plain PyTorch version of csrc/traverse_step.cu: step t of
+    `traverse_device`. Every state in use expands into its children
+    (`_fork`), consumes one label character (`_label`, then the rank
+    `range_refine_plain`), and the states it kills are dropped by a second
+    prefix sum and searchsorted, order kept; slots >= n2 take the values
+    of child slot cap - 1. `n_used` is an int or an int64 0-d tensor.
+    Returns (state, new_n, n2), the counts int64 0-d tensors."""
+    slot = torch.arange(cap, dtype=torch.int64, device=state.lo.device)
+    new_n, parent, new_node, new_off, valid = _fork(g, state.node, state.off,
+                                                    n_used, slot, cap)
+    overflow = state.overflow | (new_n > cap)
+    c = _label(g, new_node, new_off)
+    ok = valid & (c < 4)  # 'N' kills
+    r_lo, r_hi = range_refine_plain(seeds, t, state.lo[parent],
+                                    state.hi[parent], c.clamp(0, 3))
+    ok = ok & (r_lo < r_hi)
+
+    # second compaction pass: for each slot s < n2, the s-th ok state
+    csum2 = torch.cumsum(ok, dim=0)
+    n2 = csum2[-1]
+    src = torch.searchsorted(csum2, slot + 1).clamp(0, cap - 1)
+    attempted = new_n.clamp(max=cap)
+    ended = attempted - n2
+    return TraverseState(
+        locus_idx=state.locus_idx[parent][src],
+        node=new_node[src],
+        off=new_off[src] + 1,
+        lo=r_lo[src],
+        hi=r_hi[src],
+        overflow=overflow,
+        tstats=state.tstats + torch.stack([attempted, ended, ended * (t + 1)]),
+    ), new_n, n2
+
+
+_STEP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
+                  + [ctypes.c_int, ctypes.c_void_p])
+_scratch_lock = threading.Lock()
+#: traverse_step's scratch per (device index, stream pointer)
+_scratch: dict = {}
+
+
+def _step_scratch(dev: torch.device, cap: int) -> torch.Tensor:
+    """The kernel's scratch on `dev` for the current stream: zeroed once,
+    left zeroed by every launch (so launches on one stream share it),
+    grown when a larger cap needs more."""
+    words = -(-_build.call("psi_traverse_step_scratch_bytes",
+                           [ctypes.c_int], ctypes.c_longlong, cap) // 8)
+    key = (dev.index, _build.stream_ptr(dev))
+    with _scratch_lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(words, dtype=torch.int64, device=dev)
+            _scratch[key] = buf
+    return buf
+
+
+def _check_step(g: GraphArrays, seeds: SeedsArrays, t: int,
+                state: TraverseState, n_used: torch.Tensor, cap: int,
+                dev: torch.device) -> None:
+    """The graph and the state for traverse_step's kernel: contiguous
+    int32 on `dev`, the state arrays [cap], n_used an int64 and overflow
+    a bool 0-d tensor, tstats int64 [3]; the seeds tables as for
+    range_refine."""
+    if not 0 < cap < 1 << 31:
+        raise ValueError(f"traverse_step: cap {cap} outside [1, 2^31)")
+    _build.check_int32("traverse_step", dev, labels=g.labels,
+                       label_offsets=g.label_offsets,
+                       out_indptr=g.out_indptr, out_indices=g.out_indices)
+    if g.labels.numel() == 0 or g.label_offsets.numel() < 2:
+        raise ValueError("traverse_step: the graph has no labels")
+    _check_refine("traverse_step", seeds, t, dev, locus_idx=state.locus_idx,
+                  node=state.node, off=state.off, lo=state.lo, hi=state.hi)
+    if state.lo.shape != (cap,):
+        raise ValueError(f"traverse_step: the state arrays must be [{cap}]")
+    for name, x, dtype, shape in (
+            ("n_used", n_used, torch.int64, ()),
+            ("overflow", state.overflow, torch.bool, ()),
+            ("tstats", state.tstats, torch.int64, (3,))):
+        if (x.device != dev or x.dtype != dtype or x.shape != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"traverse_step: {name} must be a contiguous "
+                             f"{dtype} tensor of shape {shape} on {dev}")
+
+
+def traverse_step(g: GraphArrays, seeds: SeedsArrays, t: int,
+                  state: TraverseState, n_used, cap: int):
+    """Step t of the exact traversal: (state, new_n, n2) as
+    `traverse_step_plain` gives them, for `n_used` an int or an int64
+    0-d tensor. On a CUDA device in one launch, which reads n_used and
+    leaves every count on the device (no host sync)."""
+    dev = state.lo.device
+    if dev.type == "cpu":
+        return traverse_step_plain(g, seeds, t, state, n_used, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse_step: unsupported device {dev}")
+    if not isinstance(n_used, torch.Tensor):
+        n_used = torch.full((), n_used, dtype=torch.int64, device=dev)
+    _check_step(g, seeds, t, state, n_used, cap, dev)
+    out = torch.empty((5, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(5, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    scratch = _step_scratch(dev, cap)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "psi_traverse_step", _STEP_ARGTYPES,
+            g.labels.data_ptr(), g.labels.numel(), g.label_offsets.data_ptr(),
+            g.out_indptr.data_ptr(), g.out_indices.data_ptr(),
+            g.out_indices.numel(), seeds.occ.data_ptr(),
+            seeds.planes.data_ptr(), seeds.occ.shape[1], t,
+            state.locus_idx.data_ptr(), state.node.data_ptr(),
+            state.off.data_ptr(), state.lo.data_ptr(), state.hi.data_ptr(),
+            n_used.data_ptr(), state.overflow.data_ptr(),
+            state.tstats.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            overflow.data_ptr(), scratch.data_ptr(), cap,
+            _build.stream_ptr(dev),
+        )
+    traverse_step.launches += 1
+    return (TraverseState(*out.unbind(0), overflow=overflow,
+                          tstats=counts[2:]), counts[0], counts[1])
+
+
+traverse_step.launches = 0
+
+
 def traverse_device(
     g: GraphArrays,
     seeds: SeedsArrays,
@@ -505,12 +653,11 @@ def traverse_device(
 ):
     """Advance a frontier of states k characters over the graph.
 
-    Gather-based frontier rebuild per step (no scatters): every state
-    expands into its children (`_fork`), consumes one label character
-    (one `range_refine` launch), and the states it kills are dropped by a
-    second prefix sum and searchsorted, order kept. Every array stays at
-    `cap` and every count on the device, so the k steps queue without a
-    host sync.
+    Gather-based frontier rebuild per step (no scatters), one
+    `traverse_step` a step: every state expands into its children,
+    consumes one label character, and the states it kills are dropped,
+    order kept. Every array stays at `cap` and every count on the device,
+    so the k steps queue without a host sync.
 
     Returns (locus_idx, lo, hi, n_used, overflow, tstats) on the device;
     slots < n_used are the surviving matches. tstats = int64 [3]: go-down
@@ -519,39 +666,21 @@ def traverse_device(
     the caller).
     """
     dev = start_nodes.device
-    slot = torch.arange(cap, dtype=torch.int64, device=dev)
-    locus_idx = slot.to(torch.int32)
-    node, off = start_nodes, start_offs
-    lo = torch.zeros(cap, dtype=torch.int32, device=dev)
-    hi = torch.full((cap,), seeds.size, dtype=torch.int32, device=dev)
+    state = TraverseState(
+        locus_idx=torch.arange(cap, dtype=torch.int32, device=dev),
+        node=start_nodes,
+        off=start_offs,
+        lo=torch.zeros(cap, dtype=torch.int32, device=dev),
+        hi=torch.full((cap,), seeds.size, dtype=torch.int32, device=dev),
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        tstats=torch.zeros(3, dtype=torch.int64, device=dev),
+    )
     n_used = n_init
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    tstats = torch.zeros(3, dtype=torch.int64, device=dev)
     for t in range(k):
-        new_n, parent, new_node, new_off, valid = _fork(g, node, off, n_used,
-                                                        slot, cap)
-        overflow = overflow | (new_n > cap)
-        c = _label(g, new_node, new_off)
-        ok = valid & (c < 4)  # 'N' kills
-        r_lo, r_hi = range_refine(seeds, t, lo[parent], hi[parent],
-                                  c.clamp(0, 3))
-        ok = ok & (r_lo < r_hi)
-
-        # second compaction pass: for each slot s < n2, the s-th ok state
-        csum2 = torch.cumsum(ok, dim=0)
-        n2 = csum2[-1]
-        src = torch.searchsorted(csum2, slot + 1).clamp(0, cap - 1)
-        locus_idx = locus_idx[parent][src]
-        node = new_node[src]
-        off = new_off[src] + 1
-        lo = r_lo[src]
-        hi = r_hi[src]
-        attempted = new_n.clamp(max=cap)
-        ended = attempted - n2
-        tstats = tstats + torch.stack([attempted, ended, ended * (t + 1)])
-        n_used = n2
+        state, _, n_used = traverse_step(g, seeds, t, state, n_used, cap)
     n_used = torch.as_tensor(n_used, device=dev).to(torch.int32)
-    return locus_idx, lo, hi, n_used, overflow, tstats
+    return (state.locus_idx, state.lo, state.hi, n_used, state.overflow,
+            state.tstats)
 
 
 def traverse_device_approx(

@@ -18,10 +18,10 @@ the seed join and emission. The device routes are this package's:
     WalkTree (built once per loci set, probed per chunk on the finder's
     device) when there are no mismatches, PSI_TRAV_CACHE is on and the
     tree fits PSI_TRAV_CACHE_CAP, and otherwise the per-chunk frontier
-    traversal on the device (`traverse_device`, or with --mismatches
-    `traverse_device_approx`, csrc/range_refine.cu), dispatched before
-    the on-path route and collected after it; `seeds_off_paths(
-    device=False)` runs the host BFS mirror;
+    traversal on the device (`traverse_device`, csrc/traverse_step.cu, or
+    with --mismatches `traverse_device_approx`, csrc/range_refine.cu),
+    dispatched before the on-path route and collected after it;
+    `seeds_off_paths(device=False)` runs the host BFS mirror;
   * the MEM library API (`find_mems_arrays`, `seeds_on_paths_seqs`): the
     lockstep MEM automaton on the device, locate on the host.
 

@@ -69,18 +69,21 @@ def write_reads(haps, path: str, n: int, seed: int) -> None:
             fh.write(b"@r%d\n%s\n+\n%s\n" % (i, reads[i].tobytes(), qual))
 
 
-def make_data(tmp: str, ref_len: int, n_reads: int) -> tuple[str, str]:
-    """Write the cell's graph and reads into `tmp`: (GFA path, FASTQ
-    path)."""
+def make_data(tmp: str, ref_len: int, n_reads: int,
+              variant_rate: float = VARIANT_RATE,
+              prefix: str = "") -> tuple[str, str]:
+    """Write the cell's graph and reads into `tmp`, their file names
+    starting with `prefix`: (GFA path, FASTQ path). Another variant rate
+    makes another cell from the same seeds (tools/dense.py)."""
     from psi_tpu_torch.pathutil import sequence
     from psi_tpu_torch.simulate import make_pangenome_graph
     from psi_tpu_torch.tools.ggsim import simulate_haplotypes
 
-    graph = make_pangenome_graph(ref_len, VARIANT_RATE, seed=GRAPH_SEED)
-    gfa = os.path.join(tmp, "pangenome.gfa")
+    graph = make_pangenome_graph(ref_len, variant_rate, seed=GRAPH_SEED)
+    gfa = os.path.join(tmp, f"{prefix}pangenome.gfa")
     write_gfa(graph, gfa)
     haps = [sequence(h) for _, h in simulate_haplotypes(graph, 4, seed=7)]
-    fastq = os.path.join(tmp, "reads.fastq")
+    fastq = os.path.join(tmp, f"{prefix}reads.fastq")
     write_reads(haps, fastq, n_reads, seed=11)
     return gfa, fastq
 

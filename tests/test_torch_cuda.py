@@ -537,13 +537,98 @@ def test_range_refine_kernels_match_plain(dev):
         trav.range_refine4(off, 0, lo, hi)
 
 
+def _start_state(seeds, sn, so, cap, d):
+    """traverse_device's state before its first step, on device d."""
+    starts = [np.resize(np.pad(a, (0, cap - len(a))), cap) for a in (sn, so)]
+    return trav.TraverseState(
+        locus_idx=torch.arange(cap, dtype=torch.int32, device=d),
+        node=torch.from_numpy(starts[0]).to(d),
+        off=torch.from_numpy(starts[1]).to(d),
+        lo=torch.zeros(cap, dtype=torch.int32, device=d),
+        hi=torch.full((cap,), seeds.size, dtype=torch.int32, device=d),
+        overflow=torch.zeros((), dtype=torch.bool, device=d),
+        tstats=torch.zeros(3, dtype=torch.int64, device=d))
+
+
+def _assert_same_step(got, want):
+    """Two (state, new_n, n2) results equal over the whole cap."""
+    (gs, *gc), (ws, *wc) = got, want
+    for a, b in zip((*gs, *gc), (*ws, *wc), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [12, 32])
+def test_traverse_step_kernel_matches_plain(dev, k):
+    """traverse_step (one launch) against traverse_step_plain on the card
+    at every step's inputs of the plain traversal, over the whole cap:
+    the state, overflow, TraverserStats, new_n and n2 are bit-equal; the
+    injected 'N' kills a child on some step."""
+    graph, index, sn, so = _offpath_case(k)
+    cap = 1 << 13
+    g, seeds = trav.graph_to_device(graph, dev), trav.seeds_to_device(index,
+                                                                       dev)
+    slot = torch.arange(cap, device=dev)
+    state, n_used, killed_by_n = _start_state(seeds, sn, so, cap, dev), len(
+        sn), False
+    for t in range(k):
+        n0 = trav.traverse_step.launches
+        got = trav.traverse_step(g, seeds, t, state, n_used, cap)
+        assert trav.traverse_step.launches == n0 + 1
+        want = trav.traverse_step_plain(g, seeds, t, state, n_used, cap)
+        _assert_same_step(got, want)
+        _, _, node, off, valid = trav._fork(g, state.node, state.off, n_used,
+                                            slot, cap)
+        killed_by_n |= bool((valid & (trav._label(g, node, off) == 4)).any())
+        state, _, n_used = want
+    assert killed_by_n and int(n_used) > 0
+
+
+@pytest.mark.parametrize("case", ["empty", "full", "overflow", "ragged"])
+def test_traverse_step_kernel_at_edges(dev, case):
+    """traverse_step against traverse_step_plain over the whole cap at
+    step 1 of a traversal cut to a cap where the frontier is empty, its
+    children fill the cap exactly (new_n == cap), overflow it (children
+    past the cap dropped), or leave a ragged last tile and padding; a cap
+    of 0 or a wrong dtype is refused."""
+    graph, index, sn, so = _offpath_case(12)
+    g, seeds = trav.graph_to_device(graph, dev), trav.seeds_to_device(index,
+                                                                       dev)
+    big = 1 << 13
+    state, n_used, _ = trav.traverse_step_plain(
+        g, seeds, 0, _start_state(seeds, sn, so, big, dev), len(sn), big)
+    _, new_n, _ = trav.traverse_step_plain(g, seeds, 1, state, n_used, big)
+    n_used, new_n = int(n_used), int(new_n)
+    assert n_used + 8 < new_n < big
+    cap = {"empty": big, "full": new_n, "overflow": new_n - 5,
+           "ragged": n_used + 3}[case]
+    if case == "empty":
+        n_used = 0
+    cut = state._replace(**{f: getattr(state, f)[:cap].contiguous()
+                            for f in ("locus_idx", "node", "off", "lo", "hi")})
+    got = trav.traverse_step(g, seeds, 1, cut, n_used, cap)
+    want = trav.traverse_step_plain(g, seeds, 1, cut, n_used, cap)
+    _assert_same_step(got, want)
+    if case == "full":
+        assert int(got[1]) == cap and not got[0].overflow
+    if case == "overflow":
+        assert int(got[1]) > cap and got[0].overflow
+    if case == "empty":
+        assert int(got[1]) == int(got[2]) == 0
+    with pytest.raises(ValueError, match="cap"):
+        trav.traverse_step(g, seeds, 1, cut, n_used, 0)
+    with pytest.raises(ValueError, match="int32"):
+        trav.traverse_step(g, seeds, 1, cut._replace(lo=cut.lo.long()),
+                           n_used, cap)
+
+
 @pytest.mark.parametrize("k", [12, 32])
 def test_traversals_cuda_match_cpu(dev, k):
     """traverse_device (its k steps under sync debug mode "error": no
     host sync) and traverse_device_approx (m = 1) on the card equal their
-    runs on the CPU over the whole cap, with k range_refine (range_refine4)
-    launches; the device WalkTree probe on the card equals the host
-    probe and the exact traversal's survivors."""
+    runs on the CPU over the whole cap, with k traverse_step (range_refine4)
+    launches and no range_refine launch; the device WalkTree probe on the
+    card equals the host probe and the exact traversal's survivors."""
     graph, index, sn, so = _offpath_case(k)
     cap = 1 << 13
     snp, sop = (np.resize(np.pad(a, (0, cap - len(a))), cap) for a in (sn, so))
@@ -552,7 +637,8 @@ def test_traversals_cuda_match_cpu(dev, k):
         g, sa = trav.graph_to_device(graph, d), trav.seeds_to_device(index, d)
         args = (g, sa, torch.from_numpy(snp).to(d),
                 torch.from_numpy(sop).to(d), len(sn), k, cap)
-        n0 = trav.range_refine.launches, trav.range_refine4.launches
+        n0 = (trav.traverse_step.launches, trav.range_refine4.launches,
+              trav.range_refine.launches)
         if d.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -561,12 +647,13 @@ def test_traversals_cuda_match_cpu(dev, k):
             approx = trav.traverse_device_approx(*args, 1)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        launched = (trav.range_refine.launches - n0[0],
-                    trav.range_refine4.launches - n0[1])
+        launched = (trav.traverse_step.launches - n0[0],
+                    trav.range_refine4.launches - n0[1],
+                    trav.range_refine.launches - n0[2])
         out[d.type] = ([a.cpu().numpy() for a in exact],
                        [a.cpu().numpy() for a in approx], launched)
     (ex, ap, launched), (cex, cap_, claunched) = out["cuda"], out["cpu"]
-    assert launched == (k, k) and claunched == (0, 0)
+    assert launched == (k, k, 0) and claunched == (0, 0, 0)
     for a, b in zip((*ex, *ap), (*cex, *cap_)):
         np.testing.assert_array_equal(a, b)
     nu = int(ex[3])
@@ -585,8 +672,8 @@ def test_traversals_cuda_match_cpu(dev, k):
 def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
     """seeds_all_arrays on the card equals it on the CPU on the WalkTree
     route, the device traversal (PSI_TRAV_CACHE=0) and the mismatch
-    route (m = 1): the exact traversal launched range_refine k times, the
-    mismatch route range_refine4 k times per attempt."""
+    route (m = 1): the exact traversal launched traverse_step k times,
+    the mismatch route range_refine4 k times per attempt."""
     graph = make_pangenome_graph(30_000, 0.02, seed=8)
     itr = HaplotyperRandomIter(graph, seed=12)
     hap = Path(graph)
@@ -609,9 +696,9 @@ def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
             finder.seed_mismatches = mm
             seeds = finder.get_seeds(recs)
             index = finder.index_reads(seeds)
-            n0 = trav.range_refine.launches, trav.range_refine4.launches
+            n0 = trav.traverse_step.launches, trav.range_refine4.launches
             on, off = finder.seeds_all_arrays(seeds, index, split=True)
-            launched = (trav.range_refine.launches - n0[0],
+            launched = (trav.traverse_step.launches - n0[0],
                         trav.range_refine4.launches - n0[1])
             rows[device] = [np.sort(a, order=list(a.dtype.names))
                             for a in (on, off)]

@@ -79,8 +79,14 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     on, off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(on) > 0 and len(off) > 0, (len(on), len(off))
     os.environ["PSI_TRAV_CACHE"] = "0"       # the device traversal
+    from psi_tpu_torch.ops import traverse as trav
+    steps = []
+    step = trav.traverse_step
+    trav.traverse_step = lambda *a: steps.append(a[2]) or step(*a)
     dev_on, dev_off = finder.seeds_all_arrays(seeds, index, split=True)
+    trav.traverse_step = step
     assert len(dev_off) == len(off), (len(dev_off), len(off))
+    assert steps == list(range(12)), steps   # one traverse_step a depth
     host = []
     finder.seeds_off_paths(seeds, index, host.append, device=False)
     assert len(host) == len(off), (len(host), len(off))
@@ -118,12 +124,14 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.bacterial",
      ["write_gfa", "write_reads", "make_data", "first_chunk_index",
       "lf_steps"]),
+    ("psi_tpu_torch.tools.dense", ["make_dense", "offpath_inputs"]),
     ("psi_tpu_torch.tools.gather_sweep", ["main"]),
     ("psi_tpu_torch.tools.record_layouts", ["main"]),
 ])
 def test_tools_import_alone(module, names):
-    """The timing helpers, the bacterial cell and both sweep tools import
-    and have their functions with jax, psi_tpu and chip_smoke blocked."""
+    """The timing helpers, the bacterial and dense cells and both sweep
+    tools import and have their functions with jax, psi_tpu and
+    chip_smoke blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -206,6 +214,9 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
+    """Every csrc/*.cu (traverse_step.cu too) is compiled for sm_90a by
+    its own nvcc process, then linked once; the same sources do not
+    rebuild."""
     # a stand-in nvcc that logs its arguments and writes its -o target
     calls = _isolated_build(monkeypatch, tmp_path, (
         f'echo "$@" >> {tmp_path / "calls"}\n'
@@ -217,7 +228,8 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     assert _build.build() == lib               # same sources: no rebuild
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
-               "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu")
+               "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu",
+               "traverse_step.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
@@ -270,3 +282,7 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         trav.range_refine(seeds, 0, t, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
         trav.range_refine4(seeds, 0, t, t)
+    state = trav.TraverseState(t, t, t, t, t, t[0].bool(), t[:3].long())
+    graph = trav.GraphArrays(t, t, t, t, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trav.traverse_step(graph, seeds, 0, state, 1, 8192)

@@ -4,9 +4,10 @@ probes and the hit columns are array-equal for k < 32, and at k = 32 the
 probes match psi_tpu's device traversal (where psi_tpu's own WalkTree
 loses states whose prefix range end wraps past 2^64, R1); the device
 arrays, the range refine (plain versions, which the CPU wrappers run),
-the exact and mismatch-tolerant frontier traversals over the whole cap
-(overflow included), the packed layout, the retrying `traverse` and the
-host BFS mirror are equal to psi_tpu's."""
+the exact traversal's plain step after every depth, the exact and
+mismatch-tolerant frontier traversals over the whole cap (overflow
+included, on a dense graph too), the packed layout, the retrying
+`traverse` and the host BFS mirror are equal to psi_tpu's."""
 
 import numpy as np
 import pytest
@@ -23,9 +24,9 @@ from psi_tpu.simulate import make_pangenome_graph
 from psi_tpu_torch.ops import traverse as trav
 
 
-def _graph_reads(seed, k, n_reads=30, t_first=False):
+def _graph_reads(seed, k, n_reads=30, t_first=False, rate=0.05):
     rng = np.random.RandomState(seed)
-    graph = make_pangenome_graph(1500, 0.05, indel_frac=0.4, seed=seed)
+    graph = make_pangenome_graph(1500, rate, indel_frac=0.4, seed=seed)
     graph.labels = graph.labels.copy()     # an 'N' kills walks through it
     graph.labels[rng.randint(0, len(graph.labels))] = ord("N")
     itr = HaplotyperRandomIter(graph, seed=seed + 1)
@@ -220,6 +221,89 @@ def test_traverse_device_matches_psi_tpu(seed, k):
     for a, b in zip((li, lo, hi), probe[:3]):
         np.testing.assert_array_equal(a[:nu], b)
     assert tuple(ts) == probe[3:]
+
+
+_STEP_CASES = {12: (3, False), 32: (5, True)}   # k: (seed, t_first)
+
+
+@pytest.fixture(scope="module")
+def plain_steps():
+    """Per k of _STEP_CASES: the graph case, the cap, and the state and
+    n_used after every step of traverse_step_plain chained from the
+    start (the CPU wrapper traverse_step runs it), on the CPU."""
+    out = {}
+    for k, (seed, t_first) in _STEP_CASES.items():
+        graph, index, loci, sn, so = _graph_reads(seed, k, t_first=t_first)
+        cap = 1 << 13
+        snp, sop = _starts(sn, so, cap)
+        g, sa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+            index, "cpu")
+        state = trav.TraverseState(
+            locus_idx=torch.arange(cap, dtype=torch.int32),
+            node=torch.from_numpy(snp), off=torch.from_numpy(sop),
+            lo=torch.zeros(cap, dtype=torch.int32),
+            hi=torch.full((cap,), index.size, dtype=torch.int32),
+            overflow=torch.zeros((), dtype=torch.bool),
+            tstats=torch.zeros(3, dtype=torch.int64))
+        n_used, after = len(sn), []
+        for t in range(k):
+            state, new_n, n_used = trav.traverse_step(g, sa, t, state, n_used,
+                                                      cap)
+            after.append((state, new_n, n_used))
+        out[k] = (graph, index, sn, so, cap, after)
+    return out
+
+
+@pytest.mark.parametrize("k,depth", [(k, d) for k in _STEP_CASES
+                                     for d in range(1, k + 1)])
+def test_traverse_step_plain_matches_psi_tpu(plain_steps, k, depth):
+    """The state after `depth` plain steps (chained by traverse_step on
+    the CPU) equals psi_tpu's traverse_device run with k = depth, over the
+    whole cap: locus_idx, lo, hi, n_used, overflow and TraverserStats; the
+    step's new_n is the count of children it formed."""
+    graph, index, sn, so, cap, after = plain_steps[k]
+    state, new_n, n_used = after[depth - 1]
+    snp, sop = _starts(sn, so, cap)
+    want = jtrav.traverse_device(
+        jtrav.graph_to_device(graph), jtrav.seeds_to_device(index),
+        jnp.asarray(snp), jnp.asarray(sop),
+        jnp.asarray(len(sn), dtype=jnp.int32), depth, cap)
+    got = (state.locus_idx, state.lo, state.hi, n_used, state.overflow,
+           state.tstats)
+    for a, b in zip(got, want, strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert new_n.dtype == n_used.dtype == torch.int64
+    assert int(n_used) <= min(int(new_n), cap)
+
+
+@pytest.mark.parametrize("seed,k", [(7, 12), (9, 20)])
+def test_traverse_device_dense_graph_overflows_then_fits(seed, k):
+    """On a dense graph (a bubble every ~7 bp) the traversal overflows
+    its first cap, the next power of two above the loci (the flag and
+    every array over the whole cap equal psi_tpu's), then fits at twice
+    that cap, equal to psi_tpu's and to the WalkTree probe; `traverse`
+    retries from the first cap to the same hits as psi_tpu's."""
+    graph, index, loci, sn, so = _graph_reads(seed, k, n_reads=60,
+                                              rate=0.15)
+    cap = 1 << (len(sn) - 1).bit_length()
+    for c, overflows in ((cap, True), (2 * cap, False)):
+        got, want = _both_traversals(graph, index, sn, so, k, c)
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a, b)
+        assert bool(got[4]) == overflows
+    li, lo, hi, nu, _, ts = got
+    probe = trav.walks_match(trav.enumerate_walks(graph, sn, so, k),
+                             index.sorted_keys)
+    for a, b in zip((li, lo, hi), probe[:3]):
+        np.testing.assert_array_equal(a[:nu], b)
+    assert nu > 0 and tuple(ts) == probe[3:]
+    g, sa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+        index, "cpu")
+    hits = _sorted_hits(trav.traverse(graph, g, sa, index, loci, k, cap=cap))
+    np.testing.assert_array_equal(hits, _sorted_hits(jtrav.traverse(
+        graph, jtrav.graph_to_device(graph), jtrav.seeds_to_device(index),
+        index, loci, k, cap=cap)))
+    assert len(hits) > 0
 
 
 def test_traverse_device_overflow_matches_psi_tpu():
