@@ -106,7 +106,25 @@ exits non-zero and prints no result):
     (b) the CLI on one chunk: only trie_level and traverse_step, then
     cuda and cpu on its first 5,000 reads give byte-identical lexsorted
     hit streams; (c) at 10^6 loci or more (10 Mbp, a bubble every ~33 bp)
-    the traversal alone, as in (a), with no FM index built.
+    the traversal alone, as in (a), with no FM index built;
+15. [dindex] the distance index on phase 3's graph: (a) the native build
+    at the insert-size ranges (250, 450), (500, 2000) and (1000, 10000),
+    with intervals, seconds and artifact bytes; (b) PSI_DINDEX_BUILD=device
+    (path doubling on the card) at the first two, byte-identical to (a),
+    with rounds, wall seconds, CUDA-event time and peak MB; (c) 2^22
+    locus pairs per probed index from simulated haplotypes (7/8 on one
+    haplotype, the gap uniform in [0, 2 dmax]; 1/8 anywhere); (d) at
+    (250, 450) and (1000, 10000), the probe kernel (dindex_probe.cu)
+    bit-equal to probe_bisect_plain and probe_sort on the card, to the
+    NumPy verify_batch, and on 10,000 sampled pairs to the scalar
+    verify, with its device, enqueued and plain times, probe_sort's and
+    torch.searchsorted's, and its bounds by bytes and by 32-byte
+    sectors; (e) psikt -m 250 -M 450 -I on 5,000 reads saves the index,
+    a second run loads it without a rebuild, and both give the hits of
+    the run without -m/-M; (f) alice dstats over 10^6 read pairs of (c)
+    as GAF prints the same counts on cuda (one probe launch and nothing
+    else) and on the NumPy host probe (PSI_DINDEX_DEVICE=0), the counts
+    that the pairs' loci give.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -137,6 +155,13 @@ N_SAMPLED_KEYS = 10_000
 DENSE_MIN_LOCI = 200_000   # the dense cell's loci, at the least
 SCALE_MIN_LOCI = 1_000_000  # the scale point's loci, at the least
 N_MISMATCH_READS = 5_000   # reads of the --mismatches cuda = cpu check
+#: the distance index's insert-size ranges: a paired-end library, a wider
+#: one, and the mate-pair horizon; the device build runs at the first two
+DINDEX_HORIZONS = ((250, 450), (500, 2000), (1000, 10000))
+DINDEX_PAIRS = 1 << 22     # locus pairs per probed index
+DINDEX_SCALAR = 10_000     # of them checked by the scalar verify
+DINDEX_CLI_READS = 5_000   # reads of the psikt -m/-M round trip
+DINDEX_GAF_PAIRS = 1_000_000  # read pairs of alice dstats
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
 ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
@@ -470,6 +495,11 @@ KERNELS = {
     "range_refine4": (("traverse", "range_refine4"),
                       "psi_tpu_torch/csrc/range_refine.cu", [],
                       ["psi_tpu/ops/traverse.py:230"]),
+    # no TPU kernel: psi_tpu's probe_bisect and probe_sort are plain XLA
+    "dindex_probe": (("dindex_probe", "probe_bisect"),
+                     "psi_tpu_torch/csrc/dindex_probe.cu", [],
+                     ["psi_tpu/ops/dindex_probe.py:30",
+                      "psi_tpu/ops/dindex_probe.py:61"]),
 }
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = {
@@ -502,6 +532,8 @@ LIBRARY = {
                     "has no popcount operator",
     "range_refine4": "none: range_refine's counts for all four chars; torch "
                      "has no popcount operator",
+    "dindex_probe": "torch.searchsorted(pk, qkey, right=True): the search "
+                    "alone, without the row checks",
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 #: entry points that no route of the port runs (backward_search_sorted
@@ -1701,6 +1733,306 @@ def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     return rec, facts, steps
 
 
+# --- phase 15: the distance index ---------------------------------------------
+
+def bisect_touched(pk, qkey):
+    """Indices of pk that the searches of qkey read (every mid of every
+    bisection, as the kernel's loop visits them) and r, each query's
+    searchsorted-right, by the plain bisection on the card."""
+    import torch
+
+    n = pk.shape[0]
+    lo = torch.zeros(qkey.shape[0], dtype=torch.int64, device=pk.device)
+    hi = torch.full_like(lo, n)
+    mids = []
+    for _ in range(max(n.bit_length(), 1)):
+        live = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        mids.append(torch.unique(mid[live]))
+        le = pk[mid.clamp(0, n - 1)] <= qkey
+        lo = torch.where(live & le, mid + 1, lo)
+        hi = torch.where(live & ~le, mid, hi)
+    return torch.unique(torch.cat(mids)), lo
+
+
+def probe_work(t, q):
+    """(bytes, sector bytes, operations, steps) of one probe_bisect launch
+    at these inputs: the query columns read and the answers written, plus
+    the table entries the searches read (the distinct keys on their
+    bisection paths and the distinct rows checked, each once), or the
+    distinct 32-byte sectors those lie in."""
+    import torch
+
+    touched, r = bisect_touched(t.pk, q[0])
+    rows = torch.unique((r - 1)[r >= 1])
+    io = nbytes(*q) + q[0].numel()           # + one bool written a query
+    steps = max(t.pk.shape[0].bit_length(), 1)
+    elems = 8 * touched.numel() + 16 * rows.numel()
+    sectors = n_unique(touched >> 2) + 4 * n_unique(rows >> 3)
+    return io + elems, io + 32 * sectors, 8 * steps * q[0].numel(), steps
+
+
+def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
+    """[dindex]: the distance index on the bacterial cell's graph. (a) the
+    native build at the three horizons; (b) the device build (path
+    doubling on the card, PSI_DINDEX_BUILD=device) byte-identical to it at
+    the first two; (c) 2^22 locus pairs per probed index; (d) the probe
+    kernel against its plain version, probe_sort, the NumPy probe and the
+    scalar verify, timed beside its bounds and torch.searchsorted; (e)
+    psikt -m 250 -M 450 -I: saved, loaded without a rebuild, the hits of
+    the run without -m/-M; (f) alice dstats over 10^6 read pairs on cuda
+    and on the host probe. Returns (dindex_probe's record, the phase's
+    facts, its launches in the dstats run)."""
+    import io as _io
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.dindex import DistanceIndex, contract_chains
+    from psi_tpu_torch.io import load_graph
+    from psi_tpu_torch.ops import dindex_build
+    from psi_tpu_torch.ops import dindex_probe as dp
+    from psi_tpu_torch.tools import alice, pairs
+    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
+
+    tag = "dindex"
+    t_phase = time.monotonic()
+    graph = load_graph(gfa)
+    node_len = np.diff(graph.label_offsets)
+    t0 = time.monotonic()
+    sup = contract_chains(node_len, graph.out_indptr, graph.out_indices)
+    S = len(sup[3])
+    phase(tag, f"{graph.node_count} nodes -> {S} supernodes, "
+          f"{len(sup[5])} supernode edges ({time.monotonic() - t0:.2f} s)")
+
+    # (a) the native build at the three horizons
+    built, facts = {}, {"supernodes": S, "native": {}, "device": {},
+                        "probe": {}}
+    for dmin, dmax in DINDEX_HORIZONS:
+        t0 = time.monotonic()
+        idx = DistanceIndex.build(graph, dmin, dmax)
+        build_s = time.monotonic() - t0
+        require(idx.mode == "super" and len(idx.dst) > 0,
+                f"({dmin}, {dmax}): a {idx.mode} index of {len(idx.dst)} rows")
+        path = os.path.join(tmp, f"dist_m{dmin}M{dmax}.npz")
+        t0 = time.monotonic()
+        idx.save(path)
+        save_s = time.monotonic() - t0
+        size = os.path.getsize(path)
+        built[dmax] = (idx, path)
+        facts["native"][f"{dmin},{dmax}"] = {
+            "intervals": len(idx.dst), "build_s": build_s, "save_s": save_s,
+            "artifact_bytes": size}
+        phase(tag, f"native build ({dmin}, {dmax}): {len(idx.dst)} intervals "
+              f"in {build_s:.3f} s; artifact {size} bytes (saved in "
+              f"{save_s:.2f} s)")
+
+    # (b) the device build, byte-identical to (a)
+    orig = dindex_build.build_super_device
+    for dmin, dmax in DINDEX_HORIZONS[:2]:
+        info = {}
+        dindex_build.build_super_device = (
+            lambda *a, **k: orig(*a, info=info, **k))
+        try:
+            with env("PSI_DINDEX_BUILD", "device"):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.monotonic()
+                start.record()
+                dev_idx = DistanceIndex.build(graph, dmin, dmax)
+                end.record()
+                end.synchronize()
+                wall = time.monotonic() - t0
+        finally:
+            dindex_build.build_super_device = orig
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e6
+        want = built[dmax][0]
+        require(info.get("rounds", 0) > 0, "the device build did not run")
+        for name in ("src_indptr", "dst", "iv_lo", "iv_hi"):
+            a, b = getattr(dev_idx, name), getattr(want, name)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"({dmin}, {dmax}): the device build's {name} differs "
+                    f"from the native build's")
+        facts["device"][f"{dmin},{dmax}"] = {
+            **info, "wall_s": wall, "events_ms": start.elapsed_time(end),
+            "peak_mb": peak}
+        phase(tag, f"device build ({dmin}, {dmax}) byte-identical to native: "
+              f"{info['rounds']} rounds, {info['join_pairs']} join pairs in "
+              f"{info['pieces']} pieces; wall {wall:.3f} s, CUDA events "
+              f"{start.elapsed_time(end):.3f} ms, peak {peak:.1f} MB")
+        del dev_idx
+
+    # (c) the pairs: haplotypes of the graph, 2^22 pairs per probed index
+    t0 = time.monotonic()
+    haps = [h for _, h in simulate_haplotypes(graph, 2, seed=13)]
+    coords = pairs.hap_coords(graph, haps)
+    sets = {}
+    for dmin, dmax in (DINDEX_HORIZONS[0], DINDEX_HORIZONS[2]):
+        pr = pairs.sample_pairs(coords, DINDEX_PAIRS, 2 * dmax, seed=dmax)
+        sets[dmax] = (pr, *pairs.loci(coords, pr["hap_a"], pr["pos_a"]),
+                      *pairs.loci(coords, pr["hap_b"], pr["pos_b"]))
+    phase(tag, f"{len(haps)} haplotypes, {DINDEX_PAIRS} pairs for each of "
+          f"dmax {DINDEX_HORIZONS[0][1]} and {DINDEX_HORIZONS[2][1]} (7/8 "
+          f"on one haplotype, gap uniform in [0, 2 dmax]) in "
+          f"{time.monotonic() - t0:.1f} s")
+
+    # (d) the probe on the card against every other form
+    record = None
+    for dmin, dmax in (DINDEX_HORIZONS[0], DINDEX_HORIZONS[2]):
+        idx = built[dmax][0]
+        _, v, o, u, p = sets[dmax]
+        t0 = time.monotonic()
+        want = idx.verify_batch(graph, v, o, u, p)
+        host_s = time.monotonic() - t0
+        with recorded(dp, "probe_bisect") as calls:
+            t0 = time.monotonic()
+            got = idx.verify_batch_device(graph, v, o, u, p)
+            route_s = time.monotonic() - t0
+        require(len(calls) == 1, f"verify_batch_device made {len(calls)} "
+                f"probe_bisect calls")
+        require(np.array_equal(got, want), f"({dmin}, {dmax}): "
+                f"verify_batch_device differs from verify_batch")
+        sample = np.random.RandomState(dmax).choice(
+            len(v), DINDEX_SCALAR, replace=False)
+        for i in sample:
+            require(idx.verify(graph, int(v[i]), int(o[i]), int(u[i]),
+                               int(p[i])) == bool(want[i]),
+                    f"({dmin}, {dmax}): scalar verify differs at pair {i}")
+        t, *q = calls[0]
+        kernel = dp.probe_bisect(t, *q)
+        plain = dp.probe_bisect_plain(t, *q)
+        sort = dp.probe_sort(t, *q)
+        torch.cuda.synchronize()
+        require(torch.equal(kernel, plain) and torch.equal(kernel, sort),
+                f"({dmin}, {dmax}): the probe kernel differs from "
+                f"probe_bisect_plain or probe_sort")
+        B, n = q[0].numel(), t.pk.numel()
+        ms = cuda_ms(lambda: dp.probe_bisect(t, *q), KERNEL_REPS)
+        enq = enqueue_ms(lambda: dp.probe_bisect(t, *q), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: dp.probe_bisect_plain(t, *q), PLAIN_REPS)
+        sort_ms = cuda_ms(lambda: dp.probe_sort(t, *q), PLAIN_REPS)
+        lib_ms = cuda_ms(lambda: torch.searchsorted(t.pk, q[0], right=True),
+                         KERNEL_REPS)
+        bytes_moved, sector_bytes, ops, steps = probe_work(t, q)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        sector_ms, _ = bound(sector_bytes, ops)
+        rec = {"max_abs_err": max_abs_err(kernel, plain), "ms": ms,
+               "enqueued_ms": enq, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "sort_ms": sort_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": bytes_moved, "ops": ops,
+               "sector_bound_ms": sector_ms, "sector_bytes": sector_bytes,
+               "steps": steps, "pairs_per_s": B / (ms / 1e3),
+               "rows": n, "queries": B, "accepted": int(want.sum()),
+               "host_verify_s": host_s, "route_s": route_s,
+               "shape": f"{B} pairs over {n} rows ({dmin}, {dmax})"}
+        facts["probe"][f"{dmin},{dmax}"] = rec
+        record = record or rec
+        phase(tag, f"({dmin}, {dmax}): {B} pairs over {n} rows, "
+              f"{rec['accepted']} accepted; kernel = plain = probe_sort = "
+              f"NumPy verify_batch, scalar verify on {DINDEX_SCALAR}; "
+              f"kernel {1e3 * ms:.3f} us on the device (enqueued "
+              f"{1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}, probe_sort "
+              f"{1e3 * sort_ms:.3f}, torch.searchsorted {1e3 * lib_ms:.3f}); "
+              f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
+              f"({bytes_moved / 1e6:.2f} MB), by sectors "
+              f"{1e3 * sector_ms:.3f} us ({sector_bytes / 1e6:.2f} MB); "
+              f"{rec['pairs_per_s']:.4g} pairs/s; verify_batch on the host "
+              f"{host_s:.3f} s, verify_batch_device {route_s:.3f} s")
+        del calls, kernel, plain, sort, t, q
+    torch.cuda.empty_cache()
+
+    # (e) the CLI: -m 250 -M 450 with a path index prefix
+    small = head_fastq(fastq, os.path.join(tmp, "dindex_reads.fastq"),
+                       DINDEX_CLI_READS)
+    prefix = os.path.join(tmp, "dindex_pidx")
+    (dmin, dmax), builds = DINDEX_HORIZONS[0], []
+    dist = ("-m", str(dmin), "-M", str(dmax), "-I", prefix)
+    orig_build = DistanceIndex.build
+    DistanceIndex.build = staticmethod(
+        lambda *a, **k: builds.append(a) or orig_build(*a, **k))
+    try:
+        runs = [run_cli(gfa, small, tmp, "cuda", chunk, tag=f"_dist{i}",
+                        extra=dist) for i in (1, 2)]
+    finally:
+        DistanceIndex.build = orig_build
+    artifact = f"{prefix}_dist_mat_m{dmin}M{dmax}.npz"
+    require(len(builds) == 1 and os.path.exists(artifact),
+            f"psikt -m {dmin} -M {dmax}: {len(builds)} builds (expected one "
+            f"and then a load)")
+    loaded = DistanceIndex.load(artifact)
+    require(np.array_equal(loaded.dst, built[dmax][0].dst)
+            and np.array_equal(loaded.iv_hi, built[dmax][0].iv_hi),
+            "the CLI's artifact differs from the native build")
+    plain_hits, _, plain_wall = run_cli(gfa, small, tmp, "cuda", chunk,
+                                        tag="_nodist", extra=("-I", prefix))
+    for hits, _, _ in runs:
+        require(hits.tobytes() == plain_hits.tobytes(),
+                f"psikt -m/-M changed the hit stream: {len(hits)} vs "
+                f"{len(plain_hits)} hits")
+    facts["cli"] = {"reads": DINDEX_CLI_READS, "hits": len(plain_hits),
+                    "build_wall_s": runs[0][2], "load_wall_s": runs[1][2],
+                    "plain_wall_s": plain_wall}
+    phase(tag, f"psikt -m {dmin} -M {dmax} -I on {DINDEX_CLI_READS} reads: "
+          f"built and saved ({runs[0][2]:.1f} s), loaded with no rebuild "
+          f"({runs[1][2]:.1f} s); hit streams identical to the run without "
+          f"-m/-M ({len(plain_hits)} hits)")
+
+    # (f) alice dstats over 10^6 read pairs, cuda and the host probe
+    pr = {k: a[::4][:DINDEX_GAF_PAIRS] for k, a in sets[dmax][0].items()}
+    gaf = os.path.join(tmp, "pairs.gaf")
+    t0 = time.monotonic()
+    pairs.write_gaf(graph, coords, pr, gaf, DINDEX_GAF_PAIRS)
+    gaf_s = time.monotonic() - t0
+    outs, walls = {}, {}
+    for route in ("cuda", "host"):
+        buf = _io.StringIO()
+        with contextlib.ExitStack() as stack:
+            if route == "host":
+                stack.enter_context(env("PSI_DINDEX_DEVICE", "0"))
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            reset_counters()
+            t0 = time.monotonic()
+            rc = alice.main(["dstats", gaf, "-g", gfa, "-d",
+                             built[dmax][1]] + (["--device", "cuda"]
+                                                if route == "cuda" else []))
+            walls[route] = time.monotonic() - t0
+            counts = read_counters()
+        require(rc == 0, f"alice dstats ({route}) returned {rc}")
+        outs[route] = buf.getvalue()
+        if route == "cuda":
+            launches = counts
+    require(launches == {**ZERO_COUNTS, "dindex_probe": 1},
+            f"alice dstats on cuda launched {launches}, expected one "
+            f"dindex_probe")
+    require(outs["cuda"] == outs["host"], f"alice dstats: cuda printed "
+            f"{outs['cuda']!r}, the host probe {outs['host']!r}")
+    printed = dict(line.split(": ") for line in outs["cuda"].splitlines())
+    _, v, o, u, p = sets[dmax]
+    want = built[dmax][0].verify_batch(graph, v[::4][:DINDEX_GAF_PAIRS],
+                                       o[::4][:DINDEX_GAF_PAIRS],
+                                       u[::4][:DINDEX_GAF_PAIRS],
+                                       p[::4][:DINDEX_GAF_PAIRS])
+    require(int(printed["pairs"]) == DINDEX_GAF_PAIRS
+            and int(printed["accepted"]) == int(want.sum()),
+            f"alice dstats printed {printed}, the pairs' loci give "
+            f"{int(want.sum())} accepted of {DINDEX_GAF_PAIRS}")
+    facts["dstats"] = {"pairs": DINDEX_GAF_PAIRS, "printed": printed,
+                       "gaf_bytes": os.path.getsize(gaf), "gaf_write_s": gaf_s,
+                       "cuda_wall_s": walls["cuda"],
+                       "host_wall_s": walls["host"]}
+    phase(tag, f"alice dstats over {DINDEX_GAF_PAIRS} read pairs "
+          f"({os.path.getsize(gaf)} byte GAF, written in {gaf_s:.1f} s): "
+          f"{printed}, the same on cuda ({walls['cuda']:.2f} s, one "
+          f"dindex_probe launch) and on the host probe "
+          f"({walls['host']:.2f} s)")
+    phase(tag, f"phase {time.monotonic() - t_phase:.1f} s")
+    return record, facts, launches["dindex_probe"]
+
+
 # --- phase 13: sampled counts against the host FM index ---------------------------
 
 def check_sampled_counts(finder, uniq, n: int) -> int:
@@ -1930,6 +2262,9 @@ def main(argv=None) -> int:
         (records["traverse_step"], extra["offpath_scale"],
          launches["traverse_step"]) = offpath_scale_phase(tmp, args.chunk)
 
+        (records["dindex_probe"], extra["dindex"],
+         launches["dindex_probe"]) = dindex_phase(tmp, gfa, fastq, args.chunk)
+
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
@@ -1949,7 +2284,10 @@ def main(argv=None) -> int:
              "traverse_step": f"psikt CLI on the dense cell (WalkTree over "
                               f"its cap), one chunk of {args.chunk} reads",
              "range_refine4": "psikt CLI with --mismatches 1, one chunk of "
-                              f"{args.chunk} reads"}
+                              f"{args.chunk} reads",
+             "dindex_probe": f"alice dstats --device cuda, "
+                             f"{DINDEX_GAF_PAIRS} read pairs against the "
+                             f"{DINDEX_HORIZONS[0]} index"}
     kernels = []
     for kname, (_, source, rows, replaces) in KERNELS.items():
         require(kname in OFF_PATH or launches[kname] > 0,
@@ -2006,6 +2344,16 @@ def main(argv=None) -> int:
                 "plain_ops_per_step", "launches_per_traversal")})
         if kname == "range_refine":
             kernels[-1]["replay_launches"] = rec["replay_launches"]
+        if kname == "dindex_probe":
+            kernels[-1]["cells"] = {
+                cell: {k: r[k] for k in (
+                    "rows", "queries", "ms", "enqueued_ms", "plain_ms",
+                    "sort_ms", "library_ms", "bound_ms", "bound_by",
+                    "sector_bound_ms", "pairs_per_s")}
+                for cell, r in extra["dindex"]["probe"].items()}
+            kernels[-1].update({k: rec[k] for k in (
+                "sort_ms", "sector_bound_ms", "sector_bytes",
+                "pairs_per_s")})
         if kname == "traverse_step":
             scale = extra["offpath_scale"]
             kernels[-1]["live_bound_ms"] = rec["live_bound_ms"]

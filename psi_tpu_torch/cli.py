@@ -6,7 +6,11 @@ this package's SeedFinder. `--device cuda` runs the CUDA kernels and
 raises without a GPU; `--device cpu` runs their plain PyTorch versions.
 The on-path route is the trie chain unless psi_tpu's variables pick
 another: PSI_STREAM=0 runs the gather route (backward search on the
-dense occ table), PSI_DEVICE_LOCATE=0 locates on the host.
+dense occ table), PSI_DEVICE_LOCATE=0 locates on the host. `-m/-M`
+build the distance index over the insert-size range (on `--device` under
+PSI_DINDEX_BUILD=device); with `-I PREFIX` it is saved as
+PREFIX_dist_mat_m{dmin}M{dmax}.npz beside the path index and loaded from
+there by later runs, as psi_tpu does.
 
     python -m psi_tpu_torch.cli GRAPH -f READS -l 20 -n 2 -P -c 100000 \\
         --device cuda -o hits.bin [--report report.json]

@@ -5,7 +5,8 @@ build/psi_tpu_torch/libpsi_host.so. This binds only what this package
 calls: SA construction and the BWT/occ fill (fmindex), path picking and
 uncovered loci (seed_finder), the trie schedule (ops/fm_trie), FASTQ
 scanning (io/fastq), k-mer extraction, radix sort and the seed-index
-fill (records), and the fused emission join (seed_finder). Every entry
+fill (records), the fused emission join (seed_finder), the distance-index
+DPs (dindex) and the GAF column scan (tools/alice). Every entry
 point returns None when the library could not be built, and its caller
 then takes its NumPy path; `load_error` says why.
 """
@@ -139,6 +140,37 @@ def _load() -> Optional[ctypes.CDLL]:
             i64p, ctypes.c_int64, ctypes.c_int64, i64p, i64p,
         ]
         lib.psi_emit_join.restype = None
+        lib.psi_dindex_build.argtypes = [
+            ctypes.c_int64, i64p, i64p, i64p,
+            ctypes.c_int64, i64p, i64p, ctypes.c_int64,
+        ]
+        lib.psi_dindex_build.restype = ctypes.c_void_p
+        lib.psi_dindex_nnz.argtypes = [ctypes.c_void_p]
+        lib.psi_dindex_nnz.restype = ctypes.c_int64
+        lib.psi_dindex_export.argtypes = [
+            ctypes.c_void_p, i64p, i64p, i64p, i64p
+        ]
+        lib.psi_dindex_export.restype = None
+        lib.psi_dindex_free.argtypes = [ctypes.c_void_p]
+        lib.psi_dindex_free.restype = None
+        lib.psi_dindex_super.argtypes = [
+            ctypes.c_int64, i64p, i64p, i64p, ctypes.c_int64
+        ]
+        lib.psi_dindex_super.restype = ctypes.c_void_p
+        lib.psi_gaf_scan.argtypes = [u8p, ctypes.c_int64]
+        lib.psi_gaf_scan.restype = ctypes.c_void_p
+        lib.psi_gaf_nrec.argtypes = [ctypes.c_void_p]
+        lib.psi_gaf_nrec.restype = ctypes.c_int64
+        lib.psi_gaf_ngroups.argtypes = [ctypes.c_void_p]
+        lib.psi_gaf_ngroups.restype = ctypes.c_int64
+        lib.psi_gaf_npathnodes.argtypes = [ctypes.c_void_p]
+        lib.psi_gaf_npathnodes.restype = ctypes.c_int64
+        lib.psi_gaf_export.argtypes = [
+            ctypes.c_void_p, i64p, i64p, i64p, i64p, i64p, i64p
+        ]
+        lib.psi_gaf_export.restype = None
+        lib.psi_gaf_free.argtypes = [ctypes.c_void_p]
+        lib.psi_gaf_free.restype = None
         _lib = lib
         return _lib
 
@@ -531,3 +563,86 @@ def emit_join(counts, emit_idx, inv, origin, occ_start_u, gpos_stream,
         out_rows.reshape(-1),
     )
     return True
+
+
+def dindex_build(node_len, out_indptr, out_indices, dmax: int):
+    """Native distance-index build; returns (src_indptr, dst, lo, hi)
+    or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(node_len)
+    node_len = np.ascontiguousarray(node_len, dtype=np.int64)
+    indptr = np.ascontiguousarray(out_indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(out_indices, dtype=np.int64)
+    dummy = np.zeros(1, dtype=np.int64)
+    handle = lib.psi_dindex_build(
+        n, node_len, indptr, indices, 0, dummy, dummy, dmax
+    )
+    try:
+        nnz = lib.psi_dindex_nnz(handle)
+        src_indptr = np.empty(n + 1, dtype=np.int64)
+        dst = np.empty(nnz, dtype=np.int64)
+        lo = np.empty(nnz, dtype=np.int64)
+        hi = np.empty(nnz, dtype=np.int64)
+        lib.psi_dindex_export(handle, src_indptr, dst, lo, hi)
+    finally:
+        lib.psi_dindex_free(handle)
+    return src_indptr, dst, lo, hi
+
+
+def dindex_super_build(sup_len, sup_indptr, sup_indices, dmax: int):
+    """Native supernode-DAG distance DP; returns (src_indptr, dst, lo,
+    hi) over supernode pairs, or None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    S = len(sup_len)
+    handle = lib.psi_dindex_super(
+        S,
+        np.ascontiguousarray(sup_len, dtype=np.int64),
+        np.ascontiguousarray(sup_indptr, dtype=np.int64),
+        np.ascontiguousarray(sup_indices, dtype=np.int64),
+        dmax,
+    )
+    if not handle:
+        return None  # cyclic (caller falls back to the BFS builder)
+    try:
+        nnz = lib.psi_dindex_nnz(handle)
+        src_indptr = np.empty(S + 1, dtype=np.int64)
+        dst = np.empty(nnz, dtype=np.int64)
+        lo = np.empty(nnz, dtype=np.int64)
+        hi = np.empty(nnz, dtype=np.int64)
+        lib.psi_dindex_export(handle, src_indptr, dst, lo, hi)
+    finally:
+        lib.psi_dindex_free(handle)
+    return src_indptr, dst, lo, hi
+
+
+def gaf_scan(buf: bytes):
+    """One-pass GAF column scan for alice dstats. Returns (group, ord,
+    pstart, pend, path_indptr, path_coords, n_groups) int64 arrays —
+    group = pair-group id per record in first-appearance order — or
+    None without the library."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = np.frombuffer(buf, dtype=np.uint8)
+    if len(data) == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, z, z, np.zeros(1, dtype=np.int64), z, 0
+    handle = lib.psi_gaf_scan(data, len(data))
+    try:
+        nrec = lib.psi_gaf_nrec(handle)
+        ngroups = lib.psi_gaf_ngroups(handle)
+        npn = lib.psi_gaf_npathnodes(handle)
+        group = np.empty(nrec, dtype=np.int64)
+        ordv = np.empty(nrec, dtype=np.int64)
+        pstart = np.empty(nrec, dtype=np.int64)
+        pend = np.empty(nrec, dtype=np.int64)
+        indptr = np.empty(nrec + 1, dtype=np.int64)
+        coords = np.empty(npn, dtype=np.int64)
+        lib.psi_gaf_export(handle, group, ordv, pstart, pend, indptr, coords)
+    finally:
+        lib.psi_gaf_free(handle)
+    return group, ordv, pstart, pend, indptr, coords, int(ngroups)

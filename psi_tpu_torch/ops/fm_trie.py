@@ -275,6 +275,24 @@ def trie_search(
     return lo, hi
 
 
+def _expand_slots(csum: torch.Tensor, w: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """Run-expansion slot ids (psi_tpu's `_expand_slots`): int64 [cap],
+    out[j] = i such that j falls in slot i's width-w[i] run, for j <
+    csum[-1] (what searchsorted(csum, arange(cap), right=True) gives
+    there; past the end, and where no run has started, the values are
+    unspecified, so callers mask and clip). Run starts of non-empty slots
+    are distinct: slot ids are max-scattered there (index `cap` swallows
+    the rest) and carried forward with a running max."""
+    starts = csum - w
+    slot_ids = torch.arange(w.shape[0], dtype=torch.int64, device=w.device)
+    dst = torch.where((w > 0) & (starts < cap), starts,
+                      torch.full_like(starts, cap)).long()
+    z = torch.zeros(cap + 1, dtype=torch.int64, device=w.device)
+    z.scatter_reduce_(0, dst, slot_ids + 1, reduce="amax")
+    return torch.cummax(z[:cap], 0).values - 1
+
+
 def expand_locate(
     sa: torch.Tensor,          # int32 [n] dense suffix array
     str_starts: torch.Tensor,  # int32 [m+1]
@@ -301,15 +319,7 @@ def expand_locate(
     csum = torch.cumsum(w, 0)
     total = csum[-1]
     starts = csum - w
-    # run starts of non-empty slots are distinct: scatter slot ids there
-    # (max-scatter, index `cap` swallows the rest) and carry them forward
-    # with a running max
-    dst = torch.where((w > 0) & (starts < cap), starts,
-                      torch.full_like(starts, cap))
-    z = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
-    z.scatter_reduce_(0, dst, slot_ids + 1, reduce="amax")
-    slot = torch.cummax(z[:cap], 0).values - 1
-    slot_c = slot.clamp(0, lo.shape[0] - 1)
+    slot_c = _expand_slots(csum, w, cap).clamp(0, lo.shape[0] - 1)
     occ = torch.arange(cap, dtype=torch.int64, device=dev)
     within = occ - starts[slot_c]
     live = occ < total

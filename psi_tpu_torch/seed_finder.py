@@ -23,7 +23,11 @@ the seed join and emission. The device routes are this package's:
     dispatched before the on-path route and collected after it;
     `seeds_off_paths(device=False)` runs the host BFS mirror;
   * the MEM library API (`find_mems_arrays`, `seeds_on_paths_seqs`): the
-    lockstep MEM automaton on the device, locate on the host.
+    lockstep MEM automaton on the device, locate on the host;
+  * the distance index (`create_distance_index`, `verify_distance`, its
+    artifact saved and loaded with the path index): psi_tpu's lifecycle
+    over this package's dindex.py, built on the finder's device under
+    PSI_DINDEX_BUILD=device.
 
 One device only; the card unless `device` names the CPU. What this
 package does not port yet raises NotImplementedError naming the
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from psi_tpu_torch.device import resolve
+from psi_tpu_torch.dindex import DistanceIndex
 from psi_tpu_torch.fmindex import SIGMA
 from psi_tpu_torch.graph import Graph, Position
 from psi_tpu_torch.graphiter import BacktrackerIter, BFSIter, HaplotyperIter
@@ -52,11 +57,6 @@ from psi_tpu_torch.pathutil import Path, trim_back
 from psi_tpu_torch.records import Records, SeedSet, SeedsIndex, seeding
 from psi_tpu_torch.seed import SEED_DTYPE, Seed
 from psi_tpu_torch.stats import NoStats, ProgressEnum, SeedFinderStats
-
-_NO_DINDEX = (
-    "the distance index (-m/-M > 0) is not ported yet "
-    "(ROADMAP.md Queue 1, item 9)"
-)
 
 
 class SeedFinder:
@@ -90,6 +90,7 @@ class SeedFinder:
         self.stats = stats if stats is not None else NoStats()
         self.pindex = PathIndex(graph)
         self.starting_loci: List[Position] = []
+        self.dindex = DistanceIndex(0, 0)
         self.d = (0, 0)
         self._rng_seed = rng_seed
         # device-side caches (built lazily)
@@ -343,32 +344,44 @@ class SeedFinder:
     def get_nof_uniq_nodes(self) -> int:
         return len({l.node_id() for l in self.starting_loci})
 
-    # === distance index: only insert size 0 (no index) is ported ============
-    @staticmethod
-    def _dindex_range(dmin: int, dmax: int):
-        """psi_tpu's normalisation of an insert-size range: None when it
-        asks for no distance index, else (dmin, dmax), which this
-        package cannot serve yet."""
-        if dmin == 0 or (dmax != 0 and dmax < dmin):
-            return None
-        raise NotImplementedError(_NO_DINDEX)
-
+    # === distance index =====================================================
     def create_distance_index(
         self, dmin: int, dmax: int, per_component: bool = True
     ):
-        """(ref: seed_finder.hpp:1193-1265)"""
-        self._dindex_range(dmin, dmax)
+        """(ref: seed_finder.hpp:1193-1265). PSI_DINDEX_BUILD=device
+        builds on the finder's device."""
+        if dmin == 0 or (dmax != 0 and dmax < dmin):
+            return
+        if dmax == 0:
+            dmax = dmin
+        self.stats.set_progress(ProgressEnum.CREATE_DINDEX)
+        with self.stats.timeit_ts("index-distances"):
+            self.dindex = DistanceIndex.build(
+                self.graph, dmin, dmax, per_component, device=self.device
+            )
+            self.d = (dmin, dmax)
+
+    def verify_distance(self, v: int, o: int, u: int, p: int) -> bool:
+        with self.stats.timeit_ts("query-dindex"):
+            return self.dindex.verify(self.graph, v, o, u, p)
 
     def save_distance_index(self, prefix: str) -> bool:
-        if self.d == (0, 0):
+        if self.dindex.empty and self.d == (0, 0):
             return True
-        raise NotImplementedError(_NO_DINDEX)
+        with self.stats.timeit_ts("save-dindex"):
+            self.dindex.save(self.get_dindex_path(prefix, *self.d))
+        return True
 
     def open_distance_index(self, prefix: str, dmin: int = 0, dmax: int = 0) -> bool:
-        if dmin > 0:
-            raise NotImplementedError(_NO_DINDEX)
-        self.d = (0, 0)
-        return False
+        if dmax == 0:
+            dmax = dmin
+        self.d = (dmin, dmax)
+        path = self.get_dindex_path(prefix, dmin, dmax)
+        if not os.path.exists(path):
+            return False
+        with self.stats.timeit_ts("load-dindex"):
+            self.dindex = DistanceIndex.load(path)
+        return True
 
     # === artifact paths (naming parity, ref: seed_finder.hpp:877-892) ======
     @staticmethod
@@ -428,10 +441,10 @@ class SeedFinder:
         per_component: bool = True,
     ):
         """(ref: seed_finder.hpp:1330-1355)"""
-        self._dindex_range(dmin, dmax)
         self.pick_paths(n, patched, context)
         self.index_paths()
         self.add_uncovered_loci(step_size)
+        self.create_distance_index(dmin, dmax, per_component)
 
     def serialize_path_index(self, prefix: str, step_size: int = 1) -> bool:
         if not prefix:
@@ -452,11 +465,10 @@ class SeedFinder:
         dmin: int = 0,
         dmax: int = 0,
     ) -> bool:
-        """Transparently rebuilds missing starts artifacts
+        """Transparently rebuilds missing starts/dindex artifacts
         (ref: seed_finder.hpp:1396-1413)."""
         if not prefix:
             return False
-        self._dindex_range(dmin, dmax)
         self.stats.set_progress(ProgressEnum.LOAD_PINDEX)
         with self.stats.timeit_ts("load-pindex"):
             self.pindex.set_context(context)
@@ -466,6 +478,9 @@ class SeedFinder:
         if not self.open_starts(prefix, self.seed_len, step_size):
             self.add_uncovered_loci(step_size)
             self.save_starts(prefix, self.seed_len, step_size)
+        if not self.open_distance_index(prefix, dmin, dmax):
+            self.create_distance_index(dmin, dmax, True)
+            self.save_distance_index(prefix)
         return True
 
     # === per-chunk query machinery ==========================================

@@ -711,3 +711,110 @@ def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
         assert len(rows["cuda"][1]) > 0
         for a, b in zip(rows["cuda"], rows["cpu"]):
             assert a.tobytes() == b.tobytes()
+
+
+def _probe_case(rng, n, B, dup=False):
+    """Sorted int64 keys with int32 row columns (each key four times with
+    `dup`), and B queries of which half, where there are rows, aim at one
+    (near its key, with its pair)."""
+    pk = np.sort(rng.randint(0, 1 << 40, n // 4 if dup else n))
+    pk = np.repeat(pk, 4) if dup else pk
+    n = len(pk)
+    cols = [rng.randint(0, 50, n).astype(np.int32) for _ in range(2)]
+    lo = rng.randint(0, 500, n).astype(np.int32)
+    cols += [lo, lo + rng.randint(0, 100, n).astype(np.int32)]
+    qkey = rng.randint(-(1 << 20), (1 << 40) + 5, B)
+    q = [rng.randint(0, 50, B).astype(np.int32) for _ in range(2)]
+    if n:
+        aim = rng.randint(0, n, B // 2)
+        qkey[: B // 2] = pk[aim] + rng.randint(0, 3, B // 2)
+        for j in range(2):
+            q[j][: B // 2] = cols[j][aim]
+    s_lo = rng.randint(-50, 600, B).astype(np.int32)
+    q += [s_lo, (s_lo + rng.randint(-40, 200, B)).astype(np.int32)]
+    return [pk.astype(np.int64), *cols], [qkey.astype(np.int64), *q]
+
+
+@pytest.mark.parametrize("case", ["random", "n0", "n1", "duplicates",
+                                  "negative", "b_empty"])
+def test_dindex_probe_kernel_matches_plain(dev, case):
+    """probe_bisect's kernel against probe_bisect_plain and probe_sort on
+    the card: random, an empty index (no launch, all false), one row,
+    duplicate keys, negative s_hi, B not a multiple of the block and an
+    empty batch (no launch)."""
+    from psi_tpu_torch.ops import dindex_probe as dp
+
+    rng = np.random.RandomState(11)
+    n = {"random": 200_003, "n0": 0, "n1": 1, "duplicates": 4001,
+         "negative": 3000, "b_empty": 500}[case]
+    B = 0 if case == "b_empty" else (1 << 16) + 77
+    tabs, qs = _probe_case(rng, n, B, dup=case == "duplicates")
+    if case == "negative":
+        qs[4] = -rng.randint(0, 100, B).astype(np.int32)
+        qs[3] = qs[4] - rng.randint(0, 50, B).astype(np.int32)
+    t = dp.ProbeTables(*(torch.from_numpy(a).to(dev) for a in tabs))
+    q = [torch.from_numpy(a).to(dev) for a in qs]
+    n0 = dp.probe_bisect.launches
+    got = dp.probe_bisect(t, *q)
+    torch.cuda.synchronize()
+    assert dp.probe_bisect.launches == n0 + (n > 0 and B > 0)
+    want = dp.probe_bisect_plain(t, *q)
+    assert got.dtype == torch.bool and got.shape == (B,)
+    assert torch.equal(got, want) and torch.equal(dp.probe_sort(t, *q), want)
+    cpu = dp.probe_bisect(dp.ProbeTables(*map(torch.from_numpy, tabs)),
+                          *map(torch.from_numpy, qs))
+    assert torch.equal(got.cpu(), cpu)
+    if case in ("random", "duplicates"):
+        assert 0 < int(got.sum()) < B
+    if case in ("n0", "negative"):
+        assert not got.any()
+    with pytest.raises(ValueError, match="int64"):
+        dp.probe_bisect(t, q[0].int(), *q[1:])
+    with pytest.raises(ValueError, match=r"\[B\]"):
+        dp.probe_bisect(t, q[0], q[1].reshape(1, -1), *q[2:])
+
+
+def test_dindex_verify_batch_device_matches_host(dev, monkeypatch):
+    """verify_batch_device on the card (the kernel, and the sort variant)
+    equals the NumPy probe on pairs of a simulated pan-genome."""
+    from psi_tpu_torch.dindex import DistanceIndex
+    from psi_tpu_torch.ops import dindex_probe as dp
+    from psi_tpu_torch.tools import pairs
+    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
+
+    graph = make_pangenome_graph(200_000, 0.004, seed=1)
+    coords = pairs.hap_coords(graph, [h for _, h in simulate_haplotypes(
+        graph, 2, seed=7)])
+    pr = pairs.sample_pairs(coords, 1 << 15, 900, seed=3)
+    v, o = pairs.loci(coords, pr["hap_a"], pr["pos_a"])
+    u, p = pairs.loci(coords, pr["hap_b"], pr["pos_b"])
+    idx = DistanceIndex.build(graph, 250, 450)
+    want = idx.verify_batch(graph, v, o, u, p)
+    assert 0 < want.sum() < len(want)
+    for variant in ("bisect", "sort"):
+        monkeypatch.setenv("PSI_DINDEX_PROBE", variant)
+        n0 = dp.probe_bisect.launches
+        got = idx.verify_batch_device(graph, v, o, u, p)
+        assert dp.probe_bisect.launches == n0 + (variant == "bisect")
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dmax", [450, 2000])
+def test_dindex_device_build_matches_native(dev, dmax):
+    """The path-doubling build on the card is byte-identical to the native
+    DP at two horizons."""
+    from psi_tpu_torch import native
+    from psi_tpu_torch.dindex import contract_chains
+    from psi_tpu_torch.ops import dindex_build
+
+    graph = make_pangenome_graph(500_000, 0.004, seed=1)
+    sup = contract_chains(np.diff(graph.label_offsets), graph.out_indptr,
+                          graph.out_indices)
+    want = native.dindex_super_build(*sup[3:], dmax)
+    info = {}
+    got = dindex_build.build_super_device(*sup[3:], dmax, device=dev,
+                                          info=info)
+    assert len(want[1]) > 0 and info["rounds"] > 1
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

@@ -3,10 +3,14 @@ on the same seeded inputs each copy gives the same arrays as the module
 it was copied from, with each package's native host library loaded (the
 port builds its own from psi_tpu_torch/csrc/host)."""
 
+import difflib
+import pathlib
+
 import numpy as np
 import pytest
 
 from psi_tpu import native as jnative
+from psi_tpu.dindex import contract_chains
 from psi_tpu.fmindex import FMIndex as JFMIndex
 from psi_tpu.io import load_graph as jload_graph
 from psi_tpu.records import Records as JRecords
@@ -166,9 +170,44 @@ def _emit_join(world):
     assert (outs[0] != -7).all()
 
 
+def _dindex(world):
+    """The supernode DP and the node-pair BFS builder."""
+    graph = make_pangenome_graph(20_000, 0.03, seed=6)
+    node_len = np.diff(graph.label_offsets)
+    sup = contract_chains(node_len, graph.out_indptr, graph.out_indices)
+    for dmax in (1, 40, 400):
+        for lib in ("dindex_super_build", "dindex_build"):
+            args = (sup[3:] if lib == "dindex_super_build" else
+                    (node_len, graph.out_indptr, graph.out_indices))
+            got = getattr(native, lib)(*args, dmax)
+            want = getattr(jnative, lib)(*args, dmax)
+            for a, b in zip(got, want, strict=True):
+                _eq(a, b)
+            assert len(got[1]) > 0
+    # a cycle: the supernode DP refuses it, as psi_tpu's does
+    assert native.dindex_super_build(np.array([2, 3]), np.array([0, 1, 2]),
+                                     np.array([1, 0]), 9) is None
+
+
+def _gaf_scan(world):
+    lines = []
+    rng = np.random.RandomState(7)
+    for i in range(300):
+        for mate in ("/1", "/2", "") if i % 7 == 0 else ("/1", "/2"):
+            path = "".join(f"{'<>'[rng.randint(2)]}{rng.randint(1, 999)}"
+                           for _ in range(rng.randint(1, 5)))
+            lines.append(f"q{i % 250}{mate}\t100\t0\t100\t+\t{path}\t300\t"
+                         f"{rng.randint(0, 50)}\t{rng.randint(50, 300)}\t99"
+                         f"\t100\t60\n")
+    buf = "".join(lines).encode() + b"short\tline\n"
+    for a, b in zip(native.gaf_scan(buf), jnative.gaf_scan(buf), strict=True):
+        _eq(a, b)
+    _eq(native.gaf_scan(b"")[4], jnative.gaf_scan(b"")[4])
+
+
 @pytest.mark.parametrize("module", [
     "gfa", "fmindex", "seeds", "uncovered_loci", "picked_paths",
-    "trie_schedule", "emit_join",
+    "trie_schedule", "emit_join", "dindex", "gaf_scan",
 ])
 def test_copy_matches_original(world, module):
     globals()[f"_{module}"](world)
@@ -179,3 +218,20 @@ def test_simulated_graph_matches_original():
         8000, 0.05, seed=2)
     for name in ("labels", "label_offsets", "out_indptr", "out_indices"):
         _eq(getattr(got, name), getattr(want, name))
+
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (REPO / "psi_tpu_torch" / "csrc" / "host").glob("*.cpp")))
+def test_host_source_is_a_copy(name):
+    """Each csrc/host source is native/'s, but for comment lines that name
+    how the copy is built."""
+    got = (REPO / "psi_tpu_torch" / "csrc" / "host" / name).read_text()
+    want = (REPO / "native" / name).read_text()
+    changed = [line for line in difflib.unified_diff(
+        want.splitlines(), got.splitlines(), lineterm="", n=0)
+        if line[:1] in "+-" and not line.startswith(("+++", "---"))]
+    assert all(line[1:].lstrip().startswith("//") for line in changed), \
+        changed

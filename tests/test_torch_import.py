@@ -15,7 +15,8 @@ import torch
 from psi_tpu_torch import _build, native
 from psi_tpu_torch.device import resolve
 from psi_tpu_torch.ops import fm as fm_ops
-from psi_tpu_torch.ops import fm_fused, fm_pallas, fm_stream, fm_trie
+from psi_tpu_torch.ops import dindex_probe, fm_fused, fm_pallas, fm_stream
+from psi_tpu_torch.ops import fm_trie
 from psi_tpu_torch.ops import traverse as trav
 from psi_tpu_torch.seed_finder import SeedFinder
 from psi_tpu_torch.simulate import make_pangenome_graph
@@ -98,6 +99,17 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     finder.seed_mismatches = 1               # the mismatch routes
     mm_on, mm_off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(mm_on) > len(on) and len(mm_off) > len(off)
+    finder.create_distance_index(100, 300)   # the distance index
+    os.environ["PSI_DINDEX_BUILD"] = "device"
+    from psi_tpu_torch.dindex import DistanceIndex
+    dev_idx = DistanceIndex.build(g, 100, 300, device="cpu")
+    assert (dev_idx.dst == finder.dindex.dst).all() and len(dev_idx.dst)
+    v = rng.randint(1, g.node_count + 1, 500)
+    u = rng.randint(1, g.node_count + 1, 500)
+    o = np.zeros(500, dtype=np.int64)
+    ok = dev_idx.verify_batch_device(g, v, o, u, o, device="cpu")
+    assert (ok == finder.dindex.verify_batch(g, v, o, u, o)).all()
+    from psi_tpu_torch.tools import alice, dindexctl, pairs
     loaded = [m for m, v in sys.modules.items()
               if v is not None and m.split(".")[0] in ("jax", "psi_tpu")]
     assert not loaded, loaded
@@ -125,12 +137,20 @@ _TOOL_IMPORT = textwrap.dedent("""
      ["write_gfa", "write_reads", "make_data", "first_chunk_index",
       "lf_steps"]),
     ("psi_tpu_torch.tools.dense", ["make_dense", "offpath_inputs"]),
+    ("psi_tpu_torch.tools.pairs",
+     ["hap_coords", "sample_pairs", "loci", "write_gaf"]),
+    ("psi_tpu_torch.tools.dindexctl", ["main"]),
+    ("psi_tpu_torch.tools.alice", ["main", "cmd_dstats", "cmd_analyse"]),
+    ("psi_tpu_torch.ops.dindex_build", ["build_super_device"]),
+    ("psi_tpu_torch.ops.dindex_probe",
+     ["probe_bisect", "probe_bisect_plain", "probe_sort"]),
     ("psi_tpu_torch.tools.gather_sweep", ["main"]),
     ("psi_tpu_torch.tools.record_layouts", ["main"]),
 ])
 def test_tools_import_alone(module, names):
-    """The timing helpers, the bacterial and dense cells and both sweep
-    tools import and have their functions with jax, psi_tpu and
+    """The timing helpers, the bacterial and dense cells, both sweep
+    tools, the pair workload, dindexctl, alice and the distance index's
+    device modules import and have their functions with jax, psi_tpu and
     chip_smoke blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
@@ -214,9 +234,9 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
-    """Every csrc/*.cu (traverse_step.cu too) is compiled for sm_90a by
-    its own nvcc process, then linked once; the same sources do not
-    rebuild."""
+    """Every csrc/*.cu (traverse_step.cu and dindex_probe.cu too) is
+    compiled for sm_90a by its own nvcc process, then linked once; the
+    same sources do not rebuild."""
     # a stand-in nvcc that logs its arguments and writes its -o target
     calls = _isolated_build(monkeypatch, tmp_path, (
         f'echo "$@" >> {tmp_path / "calls"}\n'
@@ -229,7 +249,7 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
                "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu",
-               "traverse_step.cu")
+               "traverse_step.cu", "dindex_probe.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
@@ -286,3 +306,6 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     graph = trav.GraphArrays(t, t, t, t, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         trav.traverse_step(graph, seeds, 0, state, 1, 8192)
+    tabs = dindex_probe.ProbeTables(t.long(), t, t, t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        dindex_probe.probe_bisect(tabs, t.long(), t, t, t, t)

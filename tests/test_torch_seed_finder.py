@@ -228,9 +228,9 @@ def test_all_exact_matches_matches_psi_tpu(finders):
 
 
 def test_not_ported_yet_raises(dataset, monkeypatch):
-    """Multi-device pipelines (item 10) and the distance index (item 9)
-    still raise; mismatches and an over-cap WalkTree no longer do (the
-    tree route gives way to the device traversal)."""
+    """Multi-device pipelines (item 10) still raise; mismatches, an
+    over-cap WalkTree (the tree route gives way to the device traversal)
+    and the distance index no longer do."""
     graph = make_pangenome_graph(3000, 0.02, seed=1)
     with pytest.raises(NotImplementedError, match="item 10"):
         SeedFinder(graph, 12, devices=2)
@@ -241,14 +241,15 @@ def test_not_ported_yet_raises(dataset, monkeypatch):
     monkeypatch.setattr(trav, "NODE_CAP", 10)
     assert finder._get_trav_tree() is None
     assert finder._trav_tree[1] is False
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SeedFinder(graph, 12, device="cpu").create_path_index(
-            1, patched=False, dmin=200, dmax=400)
+    indexed = SeedFinder(graph, 12, device="cpu")
+    indexed.create_path_index(1, patched=False, dmin=200, dmax=400)
+    assert indexed.d == (200, 400) and len(indexed.dindex.dst) > 0
 
 
 def test_path_index_round_trip(tmp_path):
     """A path index (-I) saves and loads at insert size 0: the same
-    paths, FM index and starting loci come back."""
+    paths, FM index and starting loci come back; loading it with an
+    insert size builds the missing distance index and saves it."""
     graph = make_pangenome_graph(3000, 0.02, seed=1)
     finder = SeedFinder(graph, 12, device="cpu")
     finder.create_path_index(2, patched=False)
@@ -261,8 +262,9 @@ def test_path_index_round_trip(tmp_path):
     np.testing.assert_array_equal(loaded.pindex.fm.sa, finder.pindex.fm.sa)
     assert ([(p.node_id(), p.offset()) for p in loaded.get_starting_loci()]
             == [(p.node_id(), p.offset()) for p in finder.get_starting_loci()])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        loaded.load_path_index(prefix, dmin=200)
+    assert loaded.load_path_index(prefix, dmin=200)
+    assert loaded.d == (200, 200) and loaded.dindex.dmax == 200
+    assert (tmp_path / "pindex_dist_mat_m200M200.npz").exists()
 
 
 def test_cli_device_cuda_without_gpu_raises(dataset, monkeypatch):
