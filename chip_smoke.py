@@ -114,14 +114,19 @@ exits non-zero and prints no result):
     with rounds, wall seconds, CUDA-event time and peak MB; (c) 2^22
     locus pairs per probed index from simulated haplotypes (7/8 on one
     haplotype, the gap uniform in [0, 2 dmax]; 1/8 anywhere); (d) at
-    (250, 450) and (1000, 10000), the probe kernel (dindex_probe.cu)
-    bit-equal to probe_bisect_plain and probe_sort on the card, to the
-    NumPy verify_batch, and on 10,000 sampled pairs to the scalar
-    verify, with its device, enqueued and plain times, probe_sort's and
-    torch.searchsorted's, and its bounds by bytes and by 32-byte
-    sectors; (e) psikt -m 250 -M 450 -I on 5,000 reads saves the index,
-    a second run loads it without a rebuild, and both give the hits of
-    the run without -m/-M; (f) alice dstats over 10^6 read pairs of (c)
+    (250, 450) and (1000, 10000), the probe kernel (dindex_probe.cu,
+    one launch per verify_batch_device call) bit-equal to
+    probe_bisect_plain, probe_sort and the first design's kernel on the
+    card, to the NumPy verify_batch, and on 10,000 sampled pairs to the
+    scalar verify; its device time in turns with the first design's and
+    torch.searchsorted's, its enqueued and plain times and probe_sort's,
+    its bounds by bytes and by 32-byte sectors, the table sectors a pair
+    reads; the upload's time and its key directory's build time, bytes
+    and buckets; verify_batch_device's wall time split into the host's
+    pair arithmetic, the upload, the probe and the download; (e) psikt
+    -m 250 -M 450 -I on 5,000 reads saves the index, a second run loads
+    it without a rebuild, and both give the hits of the run without
+    -m/-M; (f) alice dstats over 10^6 read pairs of (c)
     as GAF prints the same counts on cuda (one probe launch and nothing
     else) and on the NumPy host probe (PSI_DINDEX_DEVICE=0), the counts
     that the pairs' loci give.
@@ -148,8 +153,8 @@ from psi_tpu_torch.tools.bacterial import (  # noqa: E402
     CHUNK, N_CHUNKS, N_PATHS, REF_LEN, SEED_LEN, first_chunk_index,
     lf_steps as replay_lf_steps, make_data)
 from psi_tpu_torch.tools.timing import (  # noqa: E402
-    HBM_BYTES_PER_S, bracketed_ms, card_line, cuda_ms, r4_sectors,
-    row_sectors)
+    HBM_BYTES_PER_S, bracketed_ms, card_line, cuda_ms, probe_sectors,
+    r4_sectors, row_sectors)
 
 N_SAMPLED_KEYS = 10_000
 DENSE_MIN_LOCI = 200_000   # the dense cell's loci, at the least
@@ -1772,6 +1777,62 @@ def probe_work(t, q):
     return io + elems, io + 32 * sectors, 8 * steps * q[0].numel(), steps
 
 
+def verify_breakdown(idx, graph, v, o, u, p) -> dict:
+    """verify_batch_device's wall time in parts: the host's pair
+    arithmetic before the probe, the upload of the five query columns,
+    the probe (its kernel by CUDA events, and the whole call), the
+    download of the answers and the host's work after it. The call runs
+    as it is, probe_bisect timed by a stand-in around it; the upload and
+    the download are then replayed on the same arrays to split them from
+    the host's work."""
+    import torch
+
+    from psi_tpu_torch.ops import dindex_probe as dp
+
+    orig, marks = dp.probe_bisect, {}
+
+    def timed(t, *q):
+        torch.cuda.synchronize()
+        marks["enter"] = time.monotonic()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(t, *q)
+        end.record()
+        end.synchronize()
+        marks.update(exit=time.monotonic(), q=q, out=out,
+                     kernel_ms=start.elapsed_time(end))
+        return out
+
+    timed.launches = orig.launches
+    dp.probe_bisect = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        idx.verify_batch_device(graph, v, o, u, p)
+        wall = time.monotonic() - t0
+    finally:
+        dp.probe_bisect = orig
+        orig.launches = timed.launches
+    host_cols = [x.cpu().numpy() for x in marks["q"]]
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    for c in host_cols:
+        torch.as_tensor(c).to("cuda")
+    torch.cuda.synchronize()
+    upload = time.monotonic() - t1
+    t1 = time.monotonic()
+    marks["out"].cpu().numpy()
+    download = time.monotonic() - t1
+    before, call = marks["enter"] - t0, marks["exit"] - marks["enter"]
+    return {"wall_s": wall, "host_before_s": before - upload,
+            "upload_s": upload, "upload_bytes": sum(c.nbytes
+                                                    for c in host_cols),
+            "probe_call_s": call, "kernel_ms": marks["kernel_ms"],
+            "download_s": download,
+            "host_after_s": wall - before - call - download}
+
+
 def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
     """[dindex]: the distance index on the bacterial cell's graph. (a) the
     native build at the three horizons; (b) the device build (path
@@ -1887,12 +1948,20 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
         t0 = time.monotonic()
         want = idx.verify_batch(graph, v, o, u, p)
         host_s = time.monotonic() - t0
+        # the upload: keys, row records and the key directory, once
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        idx._device_tables(torch.device("cuda", torch.cuda.current_device()))
+        torch.cuda.synchronize()
+        upload_s = time.monotonic() - t0
+        n0 = dp.probe_bisect.launches
         with recorded(dp, "probe_bisect") as calls:
             t0 = time.monotonic()
             got = idx.verify_batch_device(graph, v, o, u, p)
             route_s = time.monotonic() - t0
-        require(len(calls) == 1, f"verify_batch_device made {len(calls)} "
-                f"probe_bisect calls")
+        require(len(calls) == 1 and dp.probe_bisect.launches == n0 + 1,
+                f"verify_batch_device made {len(calls)} probe_bisect calls "
+                f"and {dp.probe_bisect.launches - n0} launches")
         require(np.array_equal(got, want), f"({dmin}, {dmax}): "
                 f"verify_batch_device differs from verify_batch")
         sample = np.random.RandomState(dmax).choice(
@@ -1902,29 +1971,66 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
                                int(p[i])) == bool(want[i]),
                     f"({dmin}, {dmax}): scalar verify differs at pair {i}")
         t, *q = calls[0]
+        # the first design's kernel reads the four columns contiguous
+        flat = dp.ProbeTables(t.pk, *(c.contiguous() for c in t[1:5]))
         kernel = dp.probe_bisect(t, *q)
         plain = dp.probe_bisect_plain(t, *q)
         sort = dp.probe_sort(t, *q)
+        first = dp.probe_bisect_flat(flat, *q)
         torch.cuda.synchronize()
-        require(torch.equal(kernel, plain) and torch.equal(kernel, sort),
+        require(torch.equal(kernel, plain) and torch.equal(kernel, sort)
+                and torch.equal(kernel, first),
                 f"({dmin}, {dmax}): the probe kernel differs from "
-                f"probe_bisect_plain or probe_sort")
+                f"probe_bisect_plain, probe_sort or the first design's "
+                f"kernel")
         B, n = q[0].numel(), t.pk.numel()
-        ms = cuda_ms(lambda: dp.probe_bisect(t, *q), KERNEL_REPS)
+        # in turns: kernel, first design, search, search, first, kernel
+        turns = {"kernel": lambda: dp.probe_bisect(t, *q),
+                 "first": lambda: dp.probe_bisect_flat(flat, *q),
+                 "search": lambda: torch.searchsorted(t.pk, q[0],
+                                                      right=True)}
+        timed = {name: [] for name in turns}
+        for name in (*turns, *reversed(turns)):
+            timed[name].append(cuda_ms(turns[name], KERNEL_REPS))
+        ms, flat_ms, lib_ms = (sum(x) / 2 for x in timed.values())
         enq = enqueue_ms(lambda: dp.probe_bisect(t, *q), KERNEL_REPS)
         plain_ms = cuda_ms(lambda: dp.probe_bisect_plain(t, *q), PLAIN_REPS)
         sort_ms = cuda_ms(lambda: dp.probe_sort(t, *q), PLAIN_REPS)
-        lib_ms = cuda_ms(lambda: torch.searchsorted(t.pk, q[0], right=True),
-                         KERNEL_REPS)
         bytes_moved, sector_bytes, ops, steps = probe_work(t, q)
         bound_ms, bound_by = bound(bytes_moved, ops)
         sector_ms, _ = bound(sector_bytes, ops)
+        # the directory: its build on the card, bytes and buckets
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        top, sub, shift = dp.directory(t.pk)
+        torch.cuda.synchronize()
+        dir_ms = 1e3 * (time.monotonic() - t0)
+        require(torch.equal(top, t.top) and torch.equal(sub, t.sub)
+                and shift == t.shift,
+                f"({dmin}, {dmax}): the directory differs from the upload's")
+        split = top[:, 2] >= 0
+        sizes = (top[:, 1] - top[:, 0])[~split].double()
+        directory = {"build_ms": dir_ms,
+                     "bytes": (top.numel() + sub.numel()) * 4,
+                     "top_bytes": top.numel() * 4,
+                     "sub_bytes": sub.numel() * 4, "shift": shift,
+                     "buckets": top.shape[0],
+                     "empty": int((sizes == 0).sum()),
+                     "split": int(split.sum()),
+                     "split_rows": int(n - sizes.sum()),
+                     "rows_per_row_bucket": float(
+                         (sizes * sizes).sum() / max(float(sizes.sum()), 1))}
+        sectors = probe_sectors(t, q[0])
+        parts = verify_breakdown(idx, graph, v, o, u, p)
         rec = {"max_abs_err": max_abs_err(kernel, plain), "ms": ms,
                "enqueued_ms": enq, "plain_ms": plain_ms,
                "library_ms": lib_ms, "sort_ms": sort_ms,
+               "first_design_ms": flat_ms, "turns_ms": timed,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": bytes_moved, "ops": ops,
                "sector_bound_ms": sector_ms, "sector_bytes": sector_bytes,
+               "sectors_per_pair": sectors, "directory": directory,
+               "upload_s": upload_s, "verify_parts": parts,
                "steps": steps, "pairs_per_s": B / (ms / 1e3),
                "rows": n, "queries": B, "accepted": int(want.sum()),
                "host_verify_s": host_s, "route_s": route_s,
@@ -1933,16 +2039,35 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
         record = record or rec
         phase(tag, f"({dmin}, {dmax}): {B} pairs over {n} rows, "
               f"{rec['accepted']} accepted; kernel = plain = probe_sort = "
-              f"NumPy verify_batch, scalar verify on {DINDEX_SCALAR}; "
-              f"kernel {1e3 * ms:.3f} us on the device (enqueued "
-              f"{1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}, probe_sort "
-              f"{1e3 * sort_ms:.3f}, torch.searchsorted {1e3 * lib_ms:.3f}); "
+              f"first design = NumPy verify_batch, scalar verify on "
+              f"{DINDEX_SCALAR}; kernel {1e3 * ms:.3f} us on the device "
+              f"(enqueued {1e3 * enq:.3f}, first design {1e3 * flat_ms:.3f}, "
+              f"torch.searchsorted {1e3 * lib_ms:.3f}, plain "
+              f"{1e3 * plain_ms:.3f}, probe_sort {1e3 * sort_ms:.3f}); "
               f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
               f"({bytes_moved / 1e6:.2f} MB), by sectors "
               f"{1e3 * sector_ms:.3f} us ({sector_bytes / 1e6:.2f} MB); "
-              f"{rec['pairs_per_s']:.4g} pairs/s; verify_batch on the host "
-              f"{host_s:.3f} s, verify_batch_device {route_s:.3f} s")
-        del calls, kernel, plain, sort, t, q
+              f"{sectors:.4f} table sectors a pair; "
+              f"{rec['pairs_per_s']:.4g} pairs/s")
+        phase(tag, f"({dmin}, {dmax}) upload {upload_s:.4f} s; the key "
+              f"directory built in {dir_ms:.3f} ms, "
+              f"{directory['bytes'] / 1e6:.3f} MB (top "
+              f"{directory['top_bytes'] / 1e6:.3f}, sub "
+              f"{directory['sub_bytes'] / 1e6:.3f}): shift {shift}, "
+              f"{directory['buckets']} top buckets, {directory['empty']} "
+              f"empty, {directory['split']} split ({directory['split_rows']} "
+              f"rows), {directory['rows_per_row_bucket']:.2f} rows in an "
+              f"unsplit row's bucket")
+        phase(tag, f"({dmin}, {dmax}) verify_batch on the host {host_s:.3f} "
+              f"s; verify_batch_device {route_s:.3f} s, timed again "
+              f"{parts['wall_s']:.4f} s: host before the probe "
+              f"{parts['host_before_s']:.4f}, upload {parts['upload_s']:.4f} "
+              f"({parts['upload_bytes'] / 1e6:.1f} MB), probe call "
+              f"{parts['probe_call_s']:.4f} (kernel "
+              f"{parts['kernel_ms']:.3f} ms), download "
+              f"{parts['download_s']:.4f}, host after "
+              f"{parts['host_after_s']:.4f}")
+        del calls, kernel, plain, sort, first, flat, t, q, top, sub
     torch.cuda.empty_cache()
 
     # (e) the CLI: -m 250 -M 450 with a path index prefix
@@ -2348,8 +2473,9 @@ def main(argv=None) -> int:
             kernels[-1]["cells"] = {
                 cell: {k: r[k] for k in (
                     "rows", "queries", "ms", "enqueued_ms", "plain_ms",
-                    "sort_ms", "library_ms", "bound_ms", "bound_by",
-                    "sector_bound_ms", "pairs_per_s")}
+                    "sort_ms", "library_ms", "first_design_ms", "bound_ms",
+                    "bound_by", "sector_bound_ms", "sectors_per_pair",
+                    "pairs_per_s")}
                 for cell, r in extra["dindex"]["probe"].items()}
             kernels[-1].update({k: rec[k] for k in (
                 "sort_ms", "sector_bound_ms", "sector_bytes",

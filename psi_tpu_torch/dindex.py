@@ -512,9 +512,11 @@ class DistanceIndex:
     def _device_tables(self, device: torch.device):
         """Probe tables on `device`, uploaded once per index and device
         (and again only if the rows change): the composite sorted keys
-        whole as int64, and the per-row (src, dst, iv_lo, iv_hi) as int32
-        columns for the pair and intersect checks."""
-        from psi_tpu_torch.ops.dindex_probe import ProbeTables
+        whole as int64, the per-row (src, dst, iv_lo, iv_hi) as one int32
+        record a row for the pair and intersect checks, and the key
+        directory built from the keys on the device
+        (ops/dindex_probe.make_tables)."""
+        from psi_tpu_torch.ops.dindex_probe import make_tables
 
         cache = getattr(self, "_dev", None)
         if cache is None or cache[0] != len(self.dst):
@@ -537,11 +539,11 @@ class DistanceIndex:
                         f"(range [{a.min()}, {a.max()}]): the device probe "
                         f"cannot hold it"
                     )
-            cache[1][key] = ProbeTables(
+            cache[1][key] = make_tables(
                 torch.as_tensor(np.ascontiguousarray(pk, dtype=np.int64)
                                 ).to(device),
-                *(torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)
-                                  ).to(device) for a in cols.values()),
+                *(torch.as_tensor(np.asarray(a, dtype=np.int32))
+                  for a in cols.values()),
             )
         return cache[1][key]
 
@@ -554,7 +556,8 @@ class DistanceIndex:
         host in int64, as `_probe_pairs` forms them, then:
 
           * "bisect" (default): ops/dindex_probe.probe_bisect, on the
-            card the kernel csrc/dindex_probe.cu, one thread per query;
+            card the kernel csrc/dindex_probe.cu, one thread per query
+            through the key directory;
           * "sort": ops/dindex_probe.probe_sort, one stable sort of rows
             ++ queries, a cumsum and a scatter-max (psi_tpu's default).
 

@@ -10,6 +10,8 @@ shared by chip_smoke.py and the sweep tools.
                  words land on
   row_sectors    distinct 32-byte sectors of an occ table that gathered
                  rows lie in
+  probe_sectors  32-byte sectors of the tables that one query of the
+                 distance index's probe kernel reads
   build_sweep    compile a sweep tool's CUDA source with the package's
                  nvcc flags into a library of its own
 
@@ -113,6 +115,33 @@ def row_sectors(width: int, pos) -> int:
     the rows at the positions lie in: a row of 16 or 32 bytes lies in
     one."""
     return distinct_sectors(4 * width * pos.long())
+
+
+def probe_sectors(t, qkey) -> float:
+    """Mean distinct 32-byte sectors of the tables that a query of
+    probe_bisect's kernel reads, as ops/dindex_probe.directory_search
+    replays its search: the top entry of its bucket, the two
+    sub-directory entries where the bucket splits, the keys of its
+    bisection and count, and the row record at r - 1. The query's own
+    columns, streamed, and the first key, which every query reads, are not
+    counted."""
+    import torch
+
+    from psi_tpu_torch.ops import dindex_probe
+
+    trace = []
+    r = dindex_probe.directory_search(t, qkey, trace)
+    trace.append(("rows", torch.where(r >= 1, r - 1, -1)))
+    width = {"top": 16, "sub": 4, "pk": 8, "rows": 16}
+    tables = list(width)
+    space = 1 << 40      # one address space per table
+    cols = [torch.where(i >= 0, tables.index(name) * space
+                        + ((width[name] * i) >> 5), -1)
+            for name, i in trace]
+    s = torch.stack(cols, 1).sort(1).values
+    first = int((s[:, 0] >= 0).sum())
+    rest = int(((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum())
+    return (first + rest) / max(qkey.numel(), 1)
 
 
 def build_sweep(tmp: str, name: str, source: str) -> ctypes.CDLL:

@@ -713,12 +713,36 @@ def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
             assert a.tobytes() == b.tobytes()
 
 
-def _probe_case(rng, n, B, dup=False):
-    """Sorted int64 keys with int32 row columns (each key four times with
-    `dup`), and B queries of which half, where there are rows, aim at one
-    (near its key, with its pair)."""
-    pk = np.sort(rng.randint(0, 1 << 40, n // 4 if dup else n))
-    pk = np.repeat(pk, 4) if dup else pk
+def _probe_keys(rng, n, kind):
+    """n sorted int64 keys (about n for the stress kinds): random over
+    [0, 2^40), each four times (`duplicates`), all but the first in one
+    directory bucket (`one_bucket`), three clusters far apart
+    (`gaps`), or repeated on both sides of bucket boundaries, multiples of
+    2^30 (`dup_boundary`: the directory's top buckets of this span are
+    2^27 wide)."""
+    if kind == "duplicates":
+        return np.repeat(np.sort(rng.randint(0, 1 << 40, n // 4)), 4)
+    if kind == "one_bucket":
+        return np.concatenate([[0], (1 << 40) + np.sort(
+            rng.randint(0, 1 << 12, n - 1))])
+    if kind == "gaps":
+        return np.sort(np.concatenate([
+            rng.randint(0, 1000, n // 3),
+            rng.randint(0, 1000, n // 3) + (1 << 45),
+            rng.randint(0, 1 << 20, n - 2 * (n // 3)) + (1 << 61)]))
+    if kind == "dup_boundary":
+        edge = np.sort(rng.choice(1 << 13, n // 5, replace=False)) << 30
+        return np.sort(np.concatenate([edge - 1, edge - 1, edge, edge,
+                                       edge + 1]))
+    return np.sort(rng.randint(0, 1 << 40, n))
+
+
+def _probe_case(rng, n, B, kind="random"):
+    """Sorted int64 keys with int32 row columns (_probe_keys), and B
+    queries of which half, where there are rows, aim at one (near its key,
+    with its pair), and a few fall before the first key and after the
+    last."""
+    pk = _probe_keys(rng, n, kind)
     n = len(pk)
     cols = [rng.randint(0, 50, n).astype(np.int32) for _ in range(2)]
     lo = rng.randint(0, 500, n).astype(np.int32)
@@ -730,29 +754,40 @@ def _probe_case(rng, n, B, dup=False):
         qkey[: B // 2] = pk[aim] + rng.randint(0, 3, B // 2)
         for j in range(2):
             q[j][: B // 2] = cols[j][aim]
+        if kind != "random":
+            near = pk[rng.randint(0, n, B - B // 2)]
+            qkey[B // 2:] = near + rng.randint(-3, 4, B - B // 2)
+        if B >= 200:
+            qkey[-200:-100] = pk[0] - rng.randint(1, 50, 100)
+            qkey[-100:] = pk[-1] + rng.randint(0, 50, 100)
     s_lo = rng.randint(-50, 600, B).astype(np.int32)
     q += [s_lo, (s_lo + rng.randint(-40, 200, B)).astype(np.int32)]
     return [pk.astype(np.int64), *cols], [qkey.astype(np.int64), *q]
 
 
 @pytest.mark.parametrize("case", ["random", "n0", "n1", "duplicates",
-                                  "negative", "b_empty"])
+                                  "negative", "b_empty", "one_bucket",
+                                  "gaps", "dup_boundary"])
 def test_dindex_probe_kernel_matches_plain(dev, case):
-    """probe_bisect's kernel against probe_bisect_plain and probe_sort on
-    the card: random, an empty index (no launch, all false), one row,
-    duplicate keys, negative s_hi, B not a multiple of the block and an
-    empty batch (no launch)."""
+    """probe_bisect's kernel, over the tables of make_tables, against
+    probe_bisect_plain and probe_sort on the card: random, an empty index
+    (no launch, all false), one row, duplicate keys, negative s_hi, B not
+    a multiple of the block, an empty batch (no launch), and the key
+    directory's stress cases (one bucket, mostly empty buckets, duplicates
+    across bucket boundaries). The first design's kernel and the
+    directory's search in torch give the same; tables without a directory
+    and wrong dtypes or shapes raise."""
     from psi_tpu_torch.ops import dindex_probe as dp
 
     rng = np.random.RandomState(11)
     n = {"random": 200_003, "n0": 0, "n1": 1, "duplicates": 4001,
-         "negative": 3000, "b_empty": 500}[case]
+         "negative": 3000, "b_empty": 500}.get(case, 20_000)
     B = 0 if case == "b_empty" else (1 << 16) + 77
-    tabs, qs = _probe_case(rng, n, B, dup=case == "duplicates")
+    tabs, qs = _probe_case(rng, n, B, kind=case)
     if case == "negative":
         qs[4] = -rng.randint(0, 100, B).astype(np.int32)
         qs[3] = qs[4] - rng.randint(0, 50, B).astype(np.int32)
-    t = dp.ProbeTables(*(torch.from_numpy(a).to(dev) for a in tabs))
+    t = dp.make_tables(*(torch.from_numpy(a).to(dev) for a in tabs))
     q = [torch.from_numpy(a).to(dev) for a in qs]
     n0 = dp.probe_bisect.launches
     got = dp.probe_bisect(t, *q)
@@ -761,10 +796,16 @@ def test_dindex_probe_kernel_matches_plain(dev, case):
     want = dp.probe_bisect_plain(t, *q)
     assert got.dtype == torch.bool and got.shape == (B,)
     assert torch.equal(got, want) and torch.equal(dp.probe_sort(t, *q), want)
+    flat = dp.ProbeTables(t.pk, *(c.contiguous() for c in t[1:5]))
+    assert torch.equal(dp.probe_bisect_flat(flat, *q), want)
+    if n:
+        assert torch.equal(dp.directory_search(t, q[0]),
+                           torch.searchsorted(t.pk, q[0], right=True))
     cpu = dp.probe_bisect(dp.ProbeTables(*map(torch.from_numpy, tabs)),
                           *map(torch.from_numpy, qs))
     assert torch.equal(got.cpu(), cpu)
-    if case in ("random", "duplicates"):
+    if case in ("random", "duplicates", "one_bucket", "gaps",
+                "dup_boundary"):
         assert 0 < int(got.sum()) < B
     if case in ("n0", "negative"):
         assert not got.any()
@@ -772,6 +813,8 @@ def test_dindex_probe_kernel_matches_plain(dev, case):
         dp.probe_bisect(t, q[0].int(), *q[1:])
     with pytest.raises(ValueError, match=r"\[B\]"):
         dp.probe_bisect(t, q[0], q[1].reshape(1, -1), *q[2:])
+    with pytest.raises(ValueError, match="make_tables"):
+        dp.probe_bisect(flat, *q)
 
 
 def test_dindex_verify_batch_device_matches_host(dev, monkeypatch):

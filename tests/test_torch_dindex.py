@@ -150,26 +150,54 @@ def test_verify_batch_device_cpu_matches_psi_tpu(variant, monkeypatch):
         e.verify_batch_device(chain, v, o, u, p, device="cpu"), want)
 
 
-def _probe_inputs(case):
-    """Sorted keys with row columns, and queries, for a probe case."""
-    rng = np.random.RandomState({"random": 1, "one_row": 2, "edges": 3,
-                                 "duplicates": 4}[case])
+_PROBE_CASES = ["random", "one_row", "edges", "duplicates", "one_bucket",
+                "gaps", "dup_boundary"]
+
+
+def _probe_keys(rng, case):
+    """Sorted int64 keys of a probe case. The last three stress the key
+    directory: every key but the first in one bucket; three clusters far
+    apart, so most buckets are empty; and keys repeated on both sides of
+    bucket boundaries (multiples of 2^30, which the directory's 2^27-wide
+    buckets of this span split at)."""
+    if case == "one_bucket":
+        return np.concatenate([[0], (1 << 40) + np.sort(
+            rng.randint(0, 1 << 12, 2999))])
+    if case == "gaps":
+        return np.sort(np.concatenate([
+            rng.randint(0, 1000, 1000), rng.randint(0, 1000, 1000) + (1 << 45),
+            rng.randint(0, 1 << 20, 1000) + (1 << 61)]))
+    if case == "dup_boundary":
+        edge = np.sort(rng.choice(1 << 10, 600, replace=False)) << 30
+        return np.sort(np.concatenate([edge - 1, edge - 1, edge, edge,
+                                       edge + 1]))
     n = {"random": 3000, "one_row": 1, "edges": 500, "duplicates": 400}[case]
-    B = 1000
-    pk = np.sort(rng.randint(0, 10 ** 6, n)).astype(np.int64)
+    pk = np.sort(rng.randint(0, 10 ** 6, n))
     if case == "duplicates":
         pk = np.sort(np.repeat(pk[: n // 4], 4))
+    return pk
+
+
+def _probe_inputs(case):
+    """Sorted keys with row columns, and queries, for a probe case."""
+    rng = np.random.RandomState(_PROBE_CASES.index(case) + 1)
+    pk = _probe_keys(rng, case).astype(np.int64)
+    n, B = len(pk), 1000
     cols = [rng.randint(0, 40, n).astype(np.int32) for _ in range(2)]
     lo = rng.randint(0, 50, n).astype(np.int32)
     cols += [lo, (lo + rng.randint(0, 30, n)).astype(np.int32)]
     # half the queries aim at a row: near its key, with its pair, around
-    # its interval; the rest are random
+    # its interval; the rest are random (near a row's key where the keys
+    # leave most of their span empty)
     idx = rng.randint(0, n, B)
+    rest = (pk[rng.randint(0, n, B - B // 2)] + rng.randint(-3, 4, B - B // 2)
+            if case in _PROBE_CASES[4:]
+            else rng.randint(-5, 10 ** 6 + 5, B - B // 2))
     qkey = np.concatenate([pk[idx[: B // 2]] + rng.randint(0, 3, B // 2),
-                           rng.randint(-5, 10 ** 6 + 5, B - B // 2)])
-    if case == "edges":          # before the first key and after the last
-        qkey[B // 2:B // 2 + 100] = pk[0] - rng.randint(1, 50, 100)
-        qkey[B // 2 + 100:B // 2 + 200] = pk[-1] + rng.randint(0, 50, 100)
+                           rest])
+    # before the first key and after the last
+    qkey[B // 2:B // 2 + 100] = pk[0] - rng.randint(1, 50, 100)
+    qkey[B // 2 + 100:B // 2 + 200] = pk[-1] + rng.randint(0, 50, 100)
     q = [np.where(np.arange(B) < B // 2, c[idx], rng.randint(0, 40, B)
                   ).astype(np.int32) for c in cols[:2]]
     s_lo = (cols[2][idx] + rng.randint(-30, 30, B)).astype(np.int32)
@@ -177,11 +205,14 @@ def _probe_inputs(case):
     return [pk, *cols], [qkey.astype(np.int64), *q]
 
 
-@pytest.mark.parametrize("case", ["random", "one_row", "edges", "duplicates"])
+@pytest.mark.parametrize("case", _PROBE_CASES)
 def test_probe_variants_match_psi_tpu(case):
     """probe_bisect (its plain version on the CPU), probe_bisect_plain and
     probe_sort against psi_tpu's JAX probe_bisect and probe_sort, which
-    take the keys as 31-bit halves."""
+    take the keys as 31-bit halves; and what the kernel reads, built by
+    make_tables: the key directory (its buckets, and its search in torch,
+    directory_search, against torch.searchsorted), and the row records,
+    whose checks at the directory's r give the same answers."""
     tabs, qs = _probe_inputs(case)
     halves = []
     for key in (tabs[0], qs[0]):
@@ -196,11 +227,62 @@ def test_probe_variants_match_psi_tpu(case):
     q = [torch.as_tensor(x) for x in qs]
     n0 = dindex_probe.probe_bisect.launches
     for fn in (dindex_probe.probe_bisect, dindex_probe.probe_bisect_plain,
-               dindex_probe.probe_sort):
+               dindex_probe.probe_sort, dindex_probe.probe_bisect_flat):
         got = fn(t, *q)
         assert got.dtype == torch.bool
         np.testing.assert_array_equal(got.numpy(), want, err_msg=fn.__name__)
     assert dindex_probe.probe_bisect.launches == n0     # CPU: plain version
+
+    d = dindex_probe.make_tables(*map(torch.as_tensor, tabs))
+    n = len(tabs[0])
+    assert d.rows.shape == (n, 4) and d.rows.is_contiguous()
+    for j, col in enumerate(tabs[1:]):
+        np.testing.assert_array_equal(d.rows[:, j].numpy(), col)
+    split = _check_directory(d)
+    r = dindex_probe.directory_search(d, q[0])
+    assert torch.equal(r, torch.searchsorted(d.pk, q[0], right=True))
+    got = dindex_probe._checks(d, r, *q[1:])
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(dindex_probe.probe_bisect(d, *q).numpy(),
+                                  want)
+    if case == "one_bucket":     # the one big bucket splits
+        assert split == 1
+    if case == "gaps":           # most top buckets are empty
+        empty = (d.top[:, 0] == d.top[:, 1]) & (d.top[:, 2] < 0)
+        assert empty.float().mean() > 0.9 and split > 0
+
+
+def _check_directory(d) -> int:
+    """The two-level key directory's invariants: the top buckets are
+    key_buckets' (their first rows, the key range of each), a bucket of
+    more than SPLIT_ROWS rows splits into 2^m sub-buckets whose first rows
+    rise from the bucket's first row to its end and hold the rows of their
+    sub-bucket id, and the rest hold their end. Returns the split
+    buckets."""
+    dp = dindex_probe
+    n = d.pk.shape[0]
+    starts, shift = dp.key_buckets(d.pk, min(dp.DIR_BITS, n.bit_length() + 1))
+    top, sub = d.top.long(), d.sub.long()
+    assert shift == d.shift and top.shape == (starts.numel() - 1, 4)
+    assert torch.equal(top[:, 0], starts[:-1])
+    count = starts.diff()
+    split = top[:, 2] >= 0
+    assert torch.equal(split, count > dp.SPLIT_ROWS)
+    assert torch.equal(top[~split, 1], starts[1:][~split])
+    k0 = int(d.pk[0])
+    for j in torch.nonzero(split).flatten().tolist():
+        off, s, m = int(top[j, 2]), int(top[j, 3]) & 0xFF, int(top[j, 3]) >> 8
+        assert m == max(1, min(16, int(np.ceil(np.log2(
+            int(count[j]) / dp.SUB_ROWS)))))
+        first = sub[top[j, 1]:top[j, 1] + (1 << m) + 1]
+        assert first[0] == starts[j] and first[-1] == starts[j + 1]
+        assert (first.diff() >= 0).all()
+        edge = ((k0 >> shift) + j) << shift
+        keys = d.pk[starts[j]:starts[j + 1]]
+        sid = ((keys - edge) >> s) - off
+        assert torch.equal(sid, torch.repeat_interleave(
+            torch.arange(1 << m), first.diff()))
+    return int(split.sum())
 
 
 def test_probe_empty_index():
@@ -295,8 +377,8 @@ def test_device_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_device_tables_once_per_index_and_device(monkeypatch):
-    """The probe tables are uploaded once per index and device; a merged
-    index has its own."""
+    """The probe tables, with the row records and key directory, are
+    uploaded once per index and device; a merged index has its own."""
     g, _ = _graphs(8, 80)
     idx = DistanceIndex.build(g, 3, 40)
     dev = torch.device("cpu")
@@ -304,6 +386,9 @@ def test_device_tables_once_per_index_and_device(monkeypatch):
     assert idx._device_tables(dev) is t1
     assert t1.pk.dtype == torch.int64 and t1.src.dtype == torch.int32
     np.testing.assert_array_equal(t1.pk.numpy(), idx._pair_keys())
+    # the kernel's row records and key directory come with the upload
+    assert t1.rows.shape == (len(idx.dst), 4) and t1.top.shape[1] == 4
+    np.testing.assert_array_equal(t1.rows[:, 1].numpy(), idx.dst)
     merged = idx.merge(DistanceIndex.build(g, 41, 60))
     assert getattr(merged, "_dev", None) is None
     assert merged._device_tables(dev) is not t1

@@ -132,7 +132,7 @@ _TOOL_IMPORT = textwrap.dedent("""
 @pytest.mark.parametrize("module,names", [
     ("psi_tpu_torch.tools.timing",
      ["cuda_ms", "bracketed_ms", "card_line", "r4_sectors", "row_sectors",
-      "build_sweep"]),
+      "probe_sectors", "build_sweep"]),
     ("psi_tpu_torch.tools.bacterial",
      ["write_gfa", "write_reads", "make_data", "first_chunk_index",
       "lf_steps"]),
@@ -143,12 +143,15 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.alice", ["main", "cmd_dstats", "cmd_analyse"]),
     ("psi_tpu_torch.ops.dindex_build", ["build_super_device"]),
     ("psi_tpu_torch.ops.dindex_probe",
-     ["probe_bisect", "probe_bisect_plain", "probe_sort"]),
+     ["probe_bisect", "probe_bisect_plain", "probe_sort",
+      "probe_bisect_flat", "make_tables", "directory", "key_buckets",
+      "directory_search"]),
     ("psi_tpu_torch.tools.gather_sweep", ["main"]),
     ("psi_tpu_torch.tools.record_layouts", ["main"]),
+    ("psi_tpu_torch.tools.probe_sweep", ["main", "probe_inputs"]),
 ])
 def test_tools_import_alone(module, names):
-    """The timing helpers, the bacterial and dense cells, both sweep
+    """The timing helpers, the bacterial and dense cells, the sweep
     tools, the pair workload, dindexctl, alice and the distance index's
     device modules import and have their functions with jax, psi_tpu and
     chip_smoke blocked."""
