@@ -96,7 +96,27 @@ exits non-zero and prints no result):
     attempt), with its hits and rates; then cuda and cpu on the first
     5,000 reads give byte-identical lexsorted hit streams;
 13. counts of 10,000 sampled distinct keys against FMIndex.backward_search;
-14. [offpath-scale] the dense cell (psi_tpu_torch/tools/dense.py: 5 Mbp,
+14. [baseline] the single-core C++ backward search (csrc/host/psi_fm.cpp
+    through native.fm_backward_batch, the speed baseline, built with
+    psi_tpu's native/Makefile flags) over chunk 1's distinct keys, warmed
+    up on the first 1,024, in turns with the card's on-path trie search
+    of the same keys, five calls each (trie_search: the host plan, the
+    upload, the trie_level launches and the download; launch counters
+    set to 0 just before and read just after: one trie_level a level and
+    a call, nothing else): the leaf ranges agree in every pair (hi - lo
+    everywhere, lo where the range is not empty), with both median rates
+    in kmer-queries/s, each pair's ratio and their median, the levels'
+    device time by CUDA events, the compiler command line and the host
+    CPU's model (lscpu);
+15. [tools] the tool CLIs on the cell's path index, saved to the
+    temporary directory: pindexctl inspect --device cuda (its SeedFinder
+    on the card; its uncovered-loci count is phase 3's), to-fasta (the
+    paths' total length is inspect's) and to-gam with the loci as edits;
+    loci_stats -c; sloci export then import gives the loci array back;
+    ggsim -t fastq -n 100000 -l 100 -S 7, single and paired-end (-d 500
+    -s 50), with the records counted; SeedFinder.nof_uncovered_kmers;
+    each with its wall time;
+16. [offpath-scale] the dense cell (psi_tpu_torch/tools/dense.py: 5 Mbp,
     a bubble every ~50 bp, ~3 x 10^5 loci, the WalkTree over its cap of
     2^23 nodes, so traverse_device is the route): (a) the traversal as in
     phase 7, traverse_step bit-equal to plain at every step over the
@@ -107,7 +127,7 @@ exits non-zero and prints no result):
     cuda and cpu on its first 5,000 reads give byte-identical lexsorted
     hit streams; (c) at 10^6 loci or more (10 Mbp, a bubble every ~33 bp)
     the traversal alone, as in (a), with no FM index built;
-15. [dindex] the distance index on phase 3's graph: (a) the native build
+17. [dindex] the distance index on phase 3's graph: (a) the native build
     at the insert-size ranges (250, 450), (500, 2000) and (1000, 10000),
     with intervals, seconds and artifact bytes; (b) PSI_DINDEX_BUILD=device
     (path doubling on the card) at the first two, byte-identical to (a),
@@ -167,6 +187,9 @@ DINDEX_PAIRS = 1 << 22     # locus pairs per probed index
 DINDEX_SCALAR = 10_000     # of them checked by the scalar verify
 DINDEX_CLI_READS = 5_000   # reads of the psikt -m/-M round trip
 DINDEX_GAF_PAIRS = 1_000_000  # read pairs of alice dstats
+BASELINE_WARM = 1024  # keys of the native baseline's warm-up call
+BASELINE_REPS = 5     # timed pairs (baseline, card) over chunk 1's keys
+GGSIM_READS = 100_000  # reads (pairs) of each ggsim run in [tools]
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
 ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
@@ -1596,7 +1619,7 @@ def summarize(rep: dict, device: str, wall: float) -> dict:
     return res
 
 
-# --- phase 14: the off-path traversal at scale ------------------------------
+# --- phase 16: the off-path traversal at scale ------------------------------
 
 def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     """[offpath-scale]: the dense cell (tools/dense.py), where the WalkTree
@@ -1738,7 +1761,7 @@ def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     return rec, facts, steps
 
 
-# --- phase 15: the distance index ---------------------------------------------
+# --- phase 17: the distance index ---------------------------------------------
 
 def bisect_touched(pk, qkey):
     """Indices of pk that the searches of qkey read (every mid of every
@@ -2187,6 +2210,218 @@ def check_sampled_counts(finder, uniq, n: int) -> int:
     return present
 
 
+# --- phase 14: the single-core native baseline against the card ---------------
+
+def cpu_model() -> str:
+    """The host CPU as lscpu names it. A virtualised host may hide the model
+    name ("unknown"): then its vendor, family, model and stepping, which
+    identify the part."""
+    import subprocess
+
+    text = subprocess.run(["lscpu"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout
+    fields = dict(line.split(":", 1) for line in text.splitlines()
+                  if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    name = fields.get("Model name", "unknown")
+    if name in ("", "-", "unknown"):
+        name = (f"model name {name or 'absent'}; " + ", ".join(
+            f"{k} {fields.get(k, 'absent')}" for k in (
+                "Vendor ID", "CPU family", "Model", "Stepping")))
+    return f"{name}; {fields.get('CPU(s)', '?')} CPUs"
+
+
+def baseline_phase(finder, index) -> dict:
+    """[baseline]: psi_fm.cpp's single-core backward search and the card's
+    trie search over chunk 1's distinct keys: the same leaf ranges, both
+    rates and their ratio."""
+    import numpy as np
+
+    from psi_tpu_torch import native
+    from psi_tpu_torch.ops import fm_stream, fm_trie
+
+    tag = "baseline"
+    fm = finder.pindex.fm
+    k = finder.seed_len
+    sarr, ftab = finder._get_stream_arrays(), finder._get_ftab()
+    uniq, _, prep = index._onpath_prep
+    levels = prep.parents.shape[0]
+    n_keys = len(uniq)
+    # the trie's keys fed column 0 first: the codes psi_fm.cpp reads
+    shifts = 2 * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    codes = ((uniq[:, None] >> shifts) & np.uint64(3)).astype(np.int32) + 1
+    payload = fm_stream.payload_host(fm)
+    C = fm.C.astype(np.int32)
+    require(native.fm_backward_batch(payload, C, fm.size,
+                                     codes[:BASELINE_WARM]) is not None,
+            f"the native baseline is missing: {native.load_error}")
+    # the two in turns, so that each ratio pairs calls made close together
+    # on the shared host
+    host_s, card_s = [], []
+    reset_counters()
+    for _ in range(BASELINE_REPS):
+        t0 = time.perf_counter()
+        lo, hi, nonempty = native.fm_backward_batch(payload, C, fm.size, codes)
+        host_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tlo, thi = fm_trie.trie_search(sarr, uniq, k, ftab=ftab)
+        card_s.append(time.perf_counter() - t0)
+        require(_same_ranges((lo, hi), (tlo, thi)),
+                "the native baseline's leaf ranges differ from the card's")
+        require(nonempty == int((thi > tlo).sum()) > 0,
+                f"nonempty {nonempty} != the card's {int((thi > tlo).sum())}")
+    got = read_counters()
+    require(got == {**ZERO_COUNTS, "trie_level": levels * BASELINE_REPS},
+            f"the trie search launched {got}, expected {levels} trie_level "
+            f"a call")
+    levels_ms = cuda_ms(lambda: fm_trie._trie_device(
+        sarr, prep.parents, prep.chars, prep.lo0, prep.hi0), ROUTE_REPS)
+    ratios = [h / c for h, c in zip(host_s, card_s)]
+    base_s = float(np.median(host_s))
+    res = {"keys": n_keys, "k": k, "levels": levels, "nonempty": nonempty,
+           "cpu": cpu_model(), "built_with": native.built_with,
+           "baseline_s": host_s,
+           "baseline_kmer_queries_per_s": n_keys / base_s,
+           "card_wall_s": card_s,
+           "card_wall_kmer_queries_per_s": n_keys / float(np.median(card_s)),
+           "card_levels_ms": levels_ms,
+           "card_levels_kmer_queries_per_s": n_keys / (levels_ms / 1e3),
+           "ratios_wall": ratios, "ratio_wall": float(np.median(ratios)),
+           "launches": got}
+    res["ratio_levels"] = res["card_levels_kmer_queries_per_s"] / res[
+        "baseline_kmer_queries_per_s"]
+    phase(tag, f"host CPU: {res['cpu']}")
+    phase(tag, f"{n_keys} distinct keys (k = {k}), {nonempty} present: "
+          f"leaf ranges of psi_fm.cpp and the card's trie search agree")
+    phase(tag, f"psi_fm.cpp, one core, built with {native.built_with}: "
+          f"{', '.join(f'{t:.4f}' for t in host_s)} s, median "
+          f"{res['baseline_kmer_queries_per_s']:.1f} kmer-queries/s")
+    phase(tag, f"card, trie_search (plan, upload, {levels} trie_level, "
+          f"download), each call just after a baseline call: "
+          f"{', '.join(f'{t:.4f}' for t in card_s)} s, median "
+          f"{res['card_wall_kmer_queries_per_s']:.1f} kmer-queries/s; "
+          f"each pair's ratio {', '.join(f'{r:.2f}' for r in ratios)}x, "
+          f"median {res['ratio_wall']:.2f}x the baseline")
+    phase(tag, f"the {levels} levels alone {levels_ms:.4f} ms on the device, "
+          f"{res['card_levels_kmer_queries_per_s']:.1f} kmer-queries/s, "
+          f"{res['ratio_levels']:.1f}x the median baseline; launches {got}")
+    return res
+
+
+# --- phase 15: the tool CLIs ------------------------------------------------------
+
+def run_tool(main_fn, argv: list) -> tuple[int, str, str, float]:
+    """A tool's main(argv) with its output captured: (exit code, stdout,
+    stderr, wall seconds)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv)
+    return rc, out.getvalue(), err.getvalue(), time.monotonic() - t0
+
+
+@contextlib.contextmanager
+def finder_devices():
+    """The device of every SeedFinder made inside the block, in order."""
+    from psi_tpu_torch.seed_finder import SeedFinder
+
+    made, init = [], SeedFinder.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self.device.type)
+
+    SeedFinder.__init__ = spy
+    try:
+        yield made
+    finally:
+        SeedFinder.__init__ = init
+
+
+def tools_phase(finder, tmp: str, gfa: str) -> dict:
+    """[tools]: pindexctl, loci_stats, sloci and ggsim on the cell's path
+    index and graph, and nof_uncovered_kmers, each checked and timed."""
+    import numpy as np
+
+    from psi_tpu_torch.tools import ggsim, loci_stats, pindexctl, sloci
+
+    tag = "tools"
+    k = str(finder.seed_len)
+    prefix = os.path.join(tmp, "pidx")
+    n_loci = len(finder.get_starting_loci())
+    walls = {}
+    t0 = time.monotonic()
+    require(finder.serialize_path_index(prefix), "serialize_path_index")
+    walls["serialize_path_index"] = time.monotonic() - t0
+
+    def tool(name, main_fn, argv, devices=None):
+        with finder_devices() as made:
+            rc, out, err, walls[name] = run_tool(main_fn, argv)
+        require(rc == 0, f"{name} exited {rc}: {err.strip()}")
+        if devices is not None:
+            require(made == devices,
+                    f"{name} made SeedFinders on {made}, expected {devices}")
+        return out, err
+
+    out, _ = tool("pindexctl inspect", pindexctl.main,
+                  ["inspect", gfa, "-I", prefix, "-l", k, "--device", "cuda"],
+                  ["cuda"])
+    lines = dict(line.split(": ", 1) for line in out.splitlines())
+    require(lines["uncovered loci"].split(" / ")[0] == str(n_loci),
+            f"pindexctl inspect counts {lines['uncovered loci']} loci, "
+            f"the index {n_loci}")
+    fasta = os.path.join(tmp, "paths.fa")
+    tool("pindexctl to-fasta", pindexctl.main,
+         ["to-fasta", gfa, "-I", prefix, "-o", fasta, "--device", "cuda"],
+         ["cuda"])
+    with open(fasta) as fh:
+        seqs = fh.read().splitlines()[1::2]
+    require(len(seqs) == int(lines["number of paths"]) and sum(
+        map(len, seqs)) == int(lines["total sequence length"]),
+        "to-fasta's paths differ from inspect's count and length")
+    gam = os.path.join(tmp, "paths.gam")
+    _, err = tool("pindexctl to-gam -l", pindexctl.main,
+                  ["to-gam", gfa, "-I", prefix, "-o", gam, "-l", k,
+                   "--device", "cuda"], ["cuda"])
+    require(f"wrote {len(seqs)} path alignments" in err, err.strip())
+    out, _ = tool("loci_stats -c", loci_stats.main, [prefix, "-l", k, "-c"])
+    require(out == f"{n_loci}\n", f"loci_stats -c printed {out!r}")
+    loci = prefix + f"_loci_e1l{k}.npy"
+    tsv, back = os.path.join(tmp, "loci.tsv"), os.path.join(tmp, "loci_back")
+    tool("sloci export", sloci.main, ["export", loci, "-o", tsv])
+    tool("sloci import", sloci.main, ["import", tsv, "-o", back])
+    require(np.array_equal(np.load(back + ".npy"), np.load(loci)),
+            "sloci export -> import changed the loci")
+    for name, extra, records in (("ggsim", [], GGSIM_READS),
+                                 ("ggsim -d 500 -s 50",
+                                  ["-d", "500", "-s", "50"],
+                                  2 * GGSIM_READS)):
+        reads = os.path.join(tmp, "ggsim.fastq")
+        tool(name, ggsim.main, [gfa, "-o", reads, "-t", "fastq", "-n",
+                                str(GGSIM_READS), "-l", "100", "-S", "7",
+                                *extra])
+        with open(reads) as fh:
+            lines_read = fh.read().splitlines()
+        n_lines, lens = len(lines_read), set(map(len, lines_read[1::4]))
+        require(n_lines == 4 * records and lens == {100},
+                f"{name} wrote {n_lines // 4} records of lengths {lens}, "
+                f"expected {records} of 100 bp")
+    t0 = time.monotonic()
+    uncovered = finder.nof_uncovered_kmers()
+    walls["nof_uncovered_kmers"] = time.monotonic() - t0
+    require(uncovered > 0, f"nof_uncovered_kmers gave {uncovered}")
+    phase(tag, f"pindexctl inspect --device cuda: {n_loci} uncovered loci "
+          f"of {lines['uncovered loci'].split(' / ')[1]}, "
+          f"{lines['uncovered unique nodes']} nodes, as the index; "
+          f"nof_uncovered_kmers {uncovered}")
+    phase(tag, "wall s: " + ", ".join(f"{name} {s:.3f}"
+                                      for name, s in walls.items()))
+    return {"loci": n_loci, "nof_uncovered_kmers": uncovered,
+            "inspect": lines, "wall_s": walls}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ref-len", type=int, default=REF_LEN,
@@ -2381,6 +2616,11 @@ def main(argv=None) -> int:
         present = check_sampled_counts(finder, uniq, N_SAMPLED_KEYS)
         phase("counts", f"{min(N_SAMPLED_KEYS, len(uniq))} sampled keys "
               f"({present} present) agree with FMIndex.backward_search")
+        t_phase = time.monotonic()
+        extra["baseline"] = baseline_phase(finder, index)
+        extra["tools"] = tools_phase(finder, tmp, gfa)
+        phase("tools", f"[baseline] and [tools] "
+              f"{time.monotonic() - t_phase:.1f} s")
         del finder, reads, seeds, index
         torch.cuda.empty_cache()
 

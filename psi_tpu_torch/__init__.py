@@ -16,6 +16,8 @@ find:
   ops/traverse.py  -- the host WalkTree (off-path route)
   seed_finder.py   -- SeedFinder: psi_tpu's host lifecycle, these routes
   cli.py           -- the psikt chunk loop with `--device`
+  tools/           -- psi_tpu's tool CLIs (pindexctl, loci_stats, sloci,
+                      ggsim, dindexctl, alice) and the chip sweeps
 
 The host layers (graph, graphiter, pathutil, pathset, fmindex, records,
 seed, stats, simulate, io, ops/kmers, tools/ggsim) are copies of

@@ -11,8 +11,11 @@ concurrent processes from building the same library twice.
   libkernels.so   nvcc for sm_90a. Each C entry point launches on the
                   stream it is given and returns cudaGetLastError();
                   `launch` raises when that is not 0.
-  libpsi_host.so  g++ from PATH, else c++, -O3 -std=c++17, with -fopenmp
-                  where the compiler accepts it; `native.py` binds it.
+  libpsi_host.so  g++ from PATH, else c++, with the flags of psi_tpu's
+                  native/Makefile (-O3 -march=native -std=c++17; so
+                  __builtin_popcount is the host's POPCNT instruction),
+                  -fopenmp where the compiler accepts it; `native.py`
+                  binds it.
 
 A failed build or launch raises: nothing here falls back to the plain
 versions.
@@ -40,7 +43,7 @@ BUILD_DIR = _PKG.parent / "build" / "psi_tpu_torch"
 NVCC_ROOTS = ("/usr/local/cuda",)
 NVCC_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC")
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC")
 #: host compilers tried in order
 CXX_NAMES = ("g++", "c++")
 
@@ -160,11 +163,14 @@ def build_host() -> tuple[pathlib.Path, str]:
     and the compiler command line it was built with."""
     cxx = _cxx()
     flags = CXX_FLAGS + (("-fopenmp",) if _accepts_openmp(cxx) else ())
-    version = subprocess.run([cxx, "--version"], capture_output=True,
-                             text=True).stdout
+    # the compiler's version and what -march=native resolves to on this
+    # host: a library built for another CPU is rebuilt, not loaded
+    target = subprocess.run(
+        [cxx, *flags, "-E", "-v", "-x", "c++", os.devnull, "-o", os.devnull],
+        capture_output=True, text=True).stderr
     sources = sorted(HOST_SRC.glob("*.cpp"))
     lib = _build_library(
-        "libpsi_host", cxx, _digest((cxx, version, *flags), sources), sources,
+        "libpsi_host", cxx, _digest((cxx, target, *flags), sources), sources,
         lambda src, obj: [cxx, *flags, "-c", "-o", obj, src],
         lambda objs, out: [cxx, *flags, "-shared", "-o", out, *objs],
     )

@@ -6,9 +6,10 @@ calls: SA construction and the BWT/occ fill (fmindex), path picking and
 uncovered loci (seed_finder), the trie schedule (ops/fm_trie), FASTQ
 scanning (io/fastq), k-mer extraction, radix sort and the seed-index
 fill (records), the fused emission join (seed_finder), the distance-index
-DPs (dindex) and the GAF column scan (tools/alice). Every entry
-point returns None when the library could not be built, and its caller
-then takes its NumPy path; `load_error` says why.
+DPs (dindex), the GAF column scan (tools/alice) and the single-core
+backward search that is the speed baseline (csrc/host/psi_fm.cpp). Every
+entry point returns None when the library could not be built, and its
+caller then takes its NumPy path; `load_error` says why.
 """
 
 from __future__ import annotations
@@ -171,6 +172,12 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.psi_gaf_export.restype = None
         lib.psi_gaf_free.argtypes = [ctypes.c_void_p]
         lib.psi_gaf_free.restype = None
+        if hasattr(lib, "psi_fm_backward_batch"):
+            lib.psi_fm_backward_batch.argtypes = [
+                i32p, ctypes.c_int64, i32p, ctypes.c_int64,
+                i32p, ctypes.c_int64, ctypes.c_int32, i32p, i32p,
+            ]
+            lib.psi_fm_backward_batch.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -646,3 +653,26 @@ def gaf_scan(buf: bytes):
     finally:
         lib.psi_gaf_free(handle)
     return group, ordv, pstart, pend, indptr, coords, int(ngroups)
+
+
+def fm_backward_batch(payload: np.ndarray, C: np.ndarray, n: int,
+                      codes: np.ndarray):
+    """Single-core C++ backward search over the checkpointed bit-plane
+    payload (csrc/host/psi_fm.cpp, the speed baseline). payload: int32
+    [16, nbpad] (ops/fm_stream.payload_host); codes: int32 [N, k], fed
+    column 0 first as the trie search feeds its keys, symbols 1..4.
+    Returns (lo, hi, nonempty) or None without the library."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "psi_fm_backward_batch"):
+        return None
+    payload = np.ascontiguousarray(payload, dtype=np.int32)
+    C = np.ascontiguousarray(C, dtype=np.int32)
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    N, k = codes.shape
+    lo = np.empty(N, dtype=np.int32)
+    hi = np.empty(N, dtype=np.int32)
+    nonempty = lib.psi_fm_backward_batch(
+        payload.reshape(-1), payload.shape[1], C, n,
+        codes.reshape(-1), N, k, lo, hi,
+    )
+    return lo, hi, int(nonempty)

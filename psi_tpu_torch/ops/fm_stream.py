@@ -64,8 +64,11 @@ class StreamArrays(NamedTuple):
     nblocks: int            # real blocks incl. the position-n spare
 
 
-def _payload_parts(fm: FMIndex) -> np.ndarray:
-    """payloadT on the host (psi_tpu/ops/fm_stream.py:_payload_parts)."""
+def payload_host(fm: FMIndex) -> np.ndarray:
+    """The checkpointed bit-plane payload [16, nbpad] int32 on the host
+    (psi_tpu/ops/fm_stream.py:payload_host): payloadT before its upload,
+    and what the single-core baseline (native.fm_backward_batch,
+    csrc/host/psi_fm.cpp) reads."""
     n = fm.size
     nblocks = n // SBLOCK + 1  # block of position n always addressable
     nbpad = -(-nblocks // WB) * WB
@@ -145,7 +148,7 @@ def build_stream_arrays(fm: FMIndex, device: torch.device) -> StreamArrays:
         raise ValueError(
             f"index of {fm.size} chars: int32 positions need < 2^31"
         )
-    return stream_arrays_from_host(_payload_parts(fm), fm.C, fm.size, device)
+    return stream_arrays_from_host(payload_host(fm), fm.C, fm.size, device)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -344,6 +344,60 @@ class SeedFinder:
     def get_nof_uniq_nodes(self) -> int:
         return len({l.node_id() for l in self.starting_loci})
 
+    def nof_uncovered_kmers(self) -> int:
+        """Audit: count k-mer loci not covered by the path set, over the
+        nodes that carry starting loci (exact mirror of
+        ref: seed_finder.hpp:1587-1635). On the host; no device work."""
+        if not self.starting_loci:
+            return 0
+        with self.stats.timeit_ts("count-uncovered-kmer"):
+            g = self.graph
+            k = self.seed_len
+            pathset = self.pindex.get_paths_set()
+            bt = BacktrackerIter(g)
+            trav_path = Path(g)
+            uncovered = 0
+            prev_id = 0
+            for locus in self.starting_loci:
+                if prev_id == locus.node_id():
+                    continue
+                prev_id = locus.node_id()
+                label_len = g.node_length(locus.node_id())
+                bt.reset(locus.node_id())
+                while not bt.at_end():
+                    offset = label_len
+                    extend_to_k(trav_path, bt, offset - 1 + k)
+                    current_path = None
+                    if trav_path.get_sequence_len() >= k:
+                        current_path = Path(
+                            g, list(trav_path.get_nodes()),
+                            trav_path.left, trav_path.right,
+                        )
+                    while (
+                        current_path is not None
+                        and current_path.get_sequence_len() != 0
+                        and not pathset.covered_by(current_path.get_nodes())
+                    ):
+                        trimmed_len = (
+                            current_path.get_sequence_len()
+                            - g.node_length(current_path.get_nodes()[-1])
+                        )
+                        if trimmed_len <= k - 1:
+                            offset = 0
+                            break
+                        offset = trimmed_len - k + 1
+                        trim_back(current_path)
+                    uncovered += label_len - offset
+                    ub = trav_path.get_sequence_len() + 1 - k
+                    if offset < ub < label_len:
+                        uncovered -= ub - offset
+                    bt.backtrack()
+                    trim_back(
+                        trav_path, bt.value if bt.value is not None else 0
+                    )
+                trav_path.clear()
+            return uncovered
+
     # === distance index =====================================================
     def create_distance_index(
         self, dmin: int, dmax: int, per_component: bool = True

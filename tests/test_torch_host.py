@@ -1,13 +1,16 @@
 """psi_tpu_torch's copies of psi_tpu's host modules against the originals:
 on the same seeded inputs each copy gives the same arrays as the module
 it was copied from, with each package's native host library loaded (the
-port builds its own from psi_tpu_torch/csrc/host)."""
+port builds its own from psi_tpu_torch/csrc/host). The single-core
+backward search (psi_fm.cpp, the speed baseline) also agrees with the
+port's own searches."""
 
 import difflib
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from psi_tpu import native as jnative
 from psi_tpu.dindex import contract_chains
@@ -16,11 +19,13 @@ from psi_tpu.io import load_graph as jload_graph
 from psi_tpu.records import Records as JRecords
 from psi_tpu.seed_finder import SeedFinder as JSeedFinder
 from psi_tpu.simulate import make_pangenome_graph as jmake_graph
+from psi_tpu.ops import fm_stream as jfm_stream
 from psi_tpu_torch import native
 from psi_tpu_torch.fmindex import FMIndex
 from psi_tpu_torch.io import load_graph
 from psi_tpu_torch.pathutil import Path, sequence
 from psi_tpu_torch.graphiter import HaplotyperRandomIter
+from psi_tpu_torch.ops import fm_stream, fm_trie
 from psi_tpu_torch.records import Records
 from psi_tpu_torch.seed_finder import SeedFinder
 from psi_tpu_torch.simulate import make_pangenome_graph
@@ -205,9 +210,83 @@ def _gaf_scan(world):
     _eq(native.gaf_scan(b"")[4], jnative.gaf_scan(b"")[4])
 
 
+def _baseline_index(k=14, n_keys=400):
+    """psi_tpu's native baseline test's inputs (tests/test_native.py): a
+    60 kbp index of two reversed random strings, and k-mers given as
+    int32 code rows (symbols 1..4), half of them substrings and half
+    random. Returns (both FM indexes, the strings, codes)."""
+    rng = np.random.RandomState(11)
+    strings = ["".join(rng.choice(list("ACGT"), size=30_000))
+               for _ in range(2)]
+    rev = [s[::-1] for s in strings]
+    lut = {c: i for i, c in enumerate("ACGT")}
+    kmers = np.empty((n_keys, k), dtype=np.int64)
+    half = n_keys // 2
+    starts = rng.randint(0, 30_000 - k, size=half)
+    for r in range(half):
+        s = strings[r % 2]
+        kmers[r] = [lut[ch] for ch in s[starts[r]: starts[r] + k]]
+    kmers[half:] = rng.randint(0, 4, size=(n_keys - half, k))
+    return (FMIndex.build_from_strings(rev), JFMIndex.build_from_strings(rev),
+            (kmers + 1).astype(np.int32))
+
+
+def _same_ranges(lo, hi, want_lo, want_hi):
+    """R3: hi - lo everywhere, lo only where the range is not empty."""
+    lo, hi = np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+    want_lo, want_hi = np.asarray(want_lo, np.int64), np.asarray(want_hi,
+                                                                  np.int64)
+    _eq(np.maximum(hi - lo, 0), np.maximum(want_hi - want_lo, 0))
+    full = want_hi > want_lo
+    _eq(lo[full], want_lo[full])
+
+
+def _payload_host(world):
+    fm, jfm, _ = _baseline_index()
+    got = fm_stream.payload_host(fm)
+    assert got.dtype == np.int32 and got.shape[0] == 16
+    _eq(got, jfm_stream.payload_host(jfm))
+
+
+def _fm_backward_batch(world):
+    """csrc/host/psi_fm.cpp's single-core search gives psi_tpu's lo, hi
+    and nonempty exactly, and the ranges of backward_search_sorted, of
+    the trie search over the same k-mers packed as keys (column 0 the
+    most significant char, the trie's order) and of the host FM index."""
+    fm, jfm, codes = _baseline_index()
+    got = native.fm_backward_batch(fm_stream.payload_host(fm),
+                                   fm.C.astype(np.int32), fm.size, codes)
+    assert got is not None, native.load_error
+    want = jnative.fm_backward_batch(jfm_stream.payload_host(jfm),
+                                     jfm.C.astype(np.int32), jfm.size, codes)
+    assert want is not None
+    lo, hi, nonempty = got
+    _eq(lo, want[0])
+    _eq(hi, want[1])
+    assert nonempty == want[2] >= len(codes) // 2
+    assert nonempty == int((hi > lo).sum())
+    arrays = fm_stream.build_stream_arrays(fm, torch.device("cpu"))
+    slo, shi = fm_stream.backward_search_sorted(arrays,
+                                                torch.from_numpy(codes))
+    _same_ranges(slo.numpy(), shi.numpy(), lo, hi)
+    k = codes.shape[1]
+    shifts = np.uint64(2) * np.arange(k - 1, -1, -1, dtype=np.uint64)
+    keys = ((codes.astype(np.uint64) - np.uint64(1)) << shifts).sum(
+        axis=1, dtype=np.uint64)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    tlo, thi = fm_trie.trie_search(arrays, uniq, k)
+    _same_ranges(tlo[inv], thi[inv], lo, hi)
+    for i in range(len(codes)):
+        # codes are fed first to last: backward search of the reversal
+        pat = "".join("ACGT"[c - 1] for c in codes[i])[::-1]
+        elo, ehi = fm.backward_search(pat)
+        _same_ranges(lo[i:i + 1], hi[i:i + 1], [elo], [ehi])
+
+
 @pytest.mark.parametrize("module", [
     "gfa", "fmindex", "seeds", "uncovered_loci", "picked_paths",
-    "trie_schedule", "emit_join", "dindex", "gaf_scan",
+    "trie_schedule", "emit_join", "dindex", "gaf_scan", "payload_host",
+    "fm_backward_batch",
 ])
 def test_copy_matches_original(world, module):
     globals()[f"_{module}"](world)

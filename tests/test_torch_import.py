@@ -140,6 +140,14 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.pairs",
      ["hap_coords", "sample_pairs", "loci", "write_gaf"]),
     ("psi_tpu_torch.tools.dindexctl", ["main"]),
+    ("psi_tpu_torch.tools.pindexctl", ["main"]),
+    ("psi_tpu_torch.tools.loci_stats", ["main"]),
+    ("psi_tpu_torch.tools.sloci", ["main"]),
+    ("psi_tpu_torch.tools.ggsim",
+     ["main", "simulate_haplotypes", "reads_dist", "revcomp",
+      "impose_error"]),
+    ("psi_tpu_torch.native", ["fm_backward_batch"]),
+    ("psi_tpu_torch.ops.fm_stream", ["payload_host"]),
     ("psi_tpu_torch.tools.alice", ["main", "cmd_dstats", "cmd_analyse"]),
     ("psi_tpu_torch.ops.dindex_build", ["build_super_device"]),
     ("psi_tpu_torch.ops.dindex_probe",
@@ -152,9 +160,10 @@ _TOOL_IMPORT = textwrap.dedent("""
 ])
 def test_tools_import_alone(module, names):
     """The timing helpers, the bacterial and dense cells, the sweep
-    tools, the pair workload, dindexctl, alice and the distance index's
-    device modules import and have their functions with jax, psi_tpu and
-    chip_smoke blocked."""
+    tools, the pair workload, the tool CLIs (dindexctl, alice, pindexctl,
+    loci_stats, sloci, ggsim), the native baseline's binding and payload,
+    and the distance index's device modules import and have their
+    functions with jax, psi_tpu and chip_smoke blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -269,7 +278,7 @@ def test_host_library_builds_and_loads(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     lib, cmd = _build.build_host()
     assert lib == tmp_path / "build" / "libpsi_host.so" and lib.exists()
-    assert "-O3" in cmd and "-std=c++17" in cmd
+    assert "-O3" in cmd and "-march=native" in cmd and "-std=c++17" in cmd
     mtime = lib.stat().st_mtime_ns
     assert _build.build_host()[0].stat().st_mtime_ns == mtime
     assert native.available(), native.load_error
