@@ -149,7 +149,29 @@ exits non-zero and prints no result):
     -m/-M; (f) alice dstats over 10^6 read pairs of (c)
     as GAF prints the same counts on cuda (one probe launch and nothing
     else) and on the NumPy host probe (PSI_DINDEX_DEVICE=0), the counts
-    that the pairs' loci give.
+    that the pairs' loci give;
+18. [mesh] the multi-device pipeline (psi_tpu_torch/parallel) on chunk 1
+    of phase 3's cell, the path index loaded as phase 15 saved it: (a)
+    SeedFinder(devices=(card, card)), a mesh naming the one card twice,
+    launch counters set to 0 just before its query and read just after:
+    its lexsorted hits byte-identical to the single-device finder's,
+    trie_level once a level a shard and traverse_step once a step a
+    shard and attempt, and nothing else; the query's wall, the sharded
+    plan's seconds, the peak MB, and per shard its plan's host ms and
+    its levels' and traversal's device ms (a replay); with two cards
+    visible the same on cuda:0 and cuda:1, else a line saying why not;
+    (b) --mismatches 1 on the same mesh over the first 10,000 reads,
+    equal to the single-device finder, with its range_refine4 launches;
+    (c) two psi_tpu_torch.tools.multihost_worker processes sharing the
+    card (gloo on a free localhost port, one shard each, a timeout on
+    each, a non-zero exit fails the phase): sharded count and trie search
+    equal to a global oracle, under PSI_MH_EMIT=shard the two streams
+    partition the single-device stream, under full each equals it, with
+    each process's launches and walls; (d) graft.dryrun_multichip(2) on
+    the card named twice; (e) psikt --devices auto -I on chunk 1: with
+    one card the single route, [cli-cuda]'s chunk-1 hits byte for byte.
+    Each kernel of the kernels line gains `mesh_launches`, its launches
+    in each of these runs.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -2422,6 +2444,321 @@ def tools_phase(finder, tmp: str, gfa: str) -> dict:
             "inspect": lines, "wall_s": walls}
 
 
+MESH_MM_READS = 10_000   # reads of [mesh] (b), --mismatches 1 on the mesh
+WORKER_TIMEOUT_S = 420   # each process of [mesh] (c)
+
+
+def _mesh_query(mf, seeds, index):
+    """One chunk's query on a mesh finder, counters set to 0 just before
+    and read just after: (lexsorted rows, launches, wall s, prepare s,
+    peak MB of the query)."""
+    import torch
+
+    t0 = time.monotonic()
+    mf.prepare_onpath(index)
+    prep_s = time.monotonic() - t0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.monotonic()
+    hits = mf.seeds_all_arrays(seeds, index)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = read_counters()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    return seed_rows(hits), launches, wall, prep_s, peak
+
+
+def _per_shard(mf, index, uniq, cap_local: int) -> list:
+    """Per shard of mf's mesh: the trie plan's host ms (fm_trie.prepare of
+    its key slice), its levels' and its traversal's device ms (CUDA
+    events), replayed after the counted run."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import fm_trie
+    from psi_tpu_torch.ops import traverse as trav
+    from psi_tpu_torch.tools.timing import cuda_ms
+
+    mesh = mf._get_mesh()
+    D = mesh.size
+    per = -(-len(uniq) // D)
+    npad = fm_trie.NPAD_MIN
+    while npad < per:
+        npad *= 2
+    sn, so = mf._get_loci_np()
+    lper = max(-(-len(sn) // D), 1)
+    out = []
+    for d in range(D):
+        dev = mesh.device(d)
+        keys = uniq[d * per: (d + 1) * per]
+        t0 = time.monotonic()
+        plan = fm_trie.prepare(keys, mf.seed_len, mf._get_ftab(), device=dev,
+                               npad=npad)
+        plan_ms = (time.monotonic() - t0) * 1e3
+        sarr = mf._get_mesh_repl(mesh, "sarr", mf._get_stream_arrays)[d]
+        with torch.cuda.device(dev):
+            trie_ms = cuda_ms(lambda: fm_trie._trie_device(
+                sarr, plan.parents, plan.chars, plan.lo0, plan.hi0), 5)
+            g = trav.graph_to_device(mf.graph, dev)
+            sa = trav.seeds_to_device(index, dev)
+            m = max(min(len(sn) - d * lper, lper), 0)
+            loci = np.zeros((2, cap_local), dtype=np.int32)
+            loci[0, :m] = sn[d * lper: d * lper + m]
+            loci[1, :m] = so[d * lper: d * lper + m]
+            sn_d, so_d = (torch.from_numpy(a).to(dev) for a in loci)
+            trav_ms = cuda_ms(lambda: trav.traverse_device_packed(
+                g, sa, sn_d, so_d, m, mf.seed_len, cap_local), 3)
+        out.append({"device": str(dev), "keys": int(len(keys)), "loci": m,
+                    "plan_ms": plan_ms, "trie_ms": trie_ms,
+                    "traversal_ms": trav_ms})
+    return out
+
+
+def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
+               prefix: str, one: str, chunk: int, hits_cuda, levels: int,
+               card) -> dict:
+    """[mesh]: the multi-device pipeline on chunk 1 of the bacterial cell:
+    (a) SeedFinder(devices=(card, card)) byte-identical to the
+    single-device finder, 2 x levels trie_level and traverse_step 20 a
+    shard and attempt (and on cuda:0, cuda:1 when there are two cards);
+    (b) --mismatches 1 on the mesh over the first MESH_MM_READS reads;
+    (c) two multihost_worker processes sharing the card (gloo on
+    localhost), both emission modes; (d) graft.dryrun_multichip(2) on the
+    card named twice; (e) psikt --devices auto on the card (one card: the
+    single route). `card` is the finder's device."""
+    import subprocess
+    import socket
+
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch import graft
+    from psi_tpu_torch.io.fastq import FastxStream
+    from psi_tpu_torch.records import Records
+    from psi_tpu_torch.seed_finder import SeedFinder
+
+    tag = "mesh"
+    t_phase = time.monotonic()
+    res = {}
+    k = finder.seed_len
+    t0 = time.monotonic()
+    single = finder.seeds_all_arrays(seeds, index)
+    single_s = time.monotonic() - t0
+    want = seed_rows(single)
+    expect_path = os.path.join(tmp, "single_hits.npy")
+    np.save(expect_path, single)
+
+    layouts = [("card named twice", (card, card))]
+    if card.type == "cuda" and torch.cuda.device_count() >= 2:
+        layouts.append(("two cards", (card, torch.device("cuda", 1))))
+    else:
+        phase(tag, f"the run on two cards was not made: "
+              f"{torch.cuda.device_count()} card is visible")
+    for name, devices in layouts:
+        t0 = time.monotonic()
+        mf = SeedFinder(finder.graph, k, devices=devices, device=card)
+        require(mf.load_path_index(prefix), f"load_path_index({prefix})")
+        # the per-index state a first chunk builds, as the single-device
+        # finder has it: not timed as the query's
+        for build in (mf._get_ftab, mf._get_stream_arrays, mf._get_sa,
+                      mf._get_map_arrays, mf._get_graph_arrays):
+            build()
+        load_s = time.monotonic() - t0
+        mseeds = mf.get_seeds(reads)
+        mindex = mf.index_reads(mseeds)
+        rows, launches, wall, prep_s, peak = _mesh_query(mf, mseeds, mindex)
+        D = mf._get_mesh().size
+        steps = launches["traverse_step"]
+        attempts = steps // (D * SEED_LEN)
+        require(rows.shape == want.shape and rows.tobytes() == want.tobytes(),
+                f"[mesh] {name}: {len(rows)} hits, the single-device "
+                f"finder {len(want)}")
+        require(launches == {**ZERO_COUNTS, "trie_level": D * levels,
+                             "traverse_step": steps}
+                and steps == attempts * D * SEED_LEN and attempts >= 1,
+                f"[mesh] {name} launched {launches}, expected {D * levels} "
+                f"trie_level and {D} x {SEED_LEN} traverse_step an attempt")
+        loci = len(mf.get_starting_loci())
+        per_loci = -(-loci // D)
+        cap_local = max(1 << 12, 1 << (per_loci - 1).bit_length())
+        uniq = mindex._onpath_prep[0]
+        shards = _per_shard(mf, mindex, uniq, cap_local << (attempts - 1))
+        rec = {"devices": [str(d) for d in devices], "hits": len(rows),
+               "keys": int(len(uniq)), "loci": loci,
+               "loci_per_shard": per_loci, "cap_local": cap_local,
+               "attempts": attempts, "launches": launches,
+               "query_wall_s": wall, "prepare_s": prep_s,
+               "single_query_s": single_s, "peak_mb": peak,
+               "load_s": load_s, "shards": shards}
+        res["a" if name == "card named twice" else "a_two_cards"] = rec
+        phase(tag, f"(a) {name}: {len(rows)} hits byte-identical to the "
+              f"single-device finder's ({single_s:.3f} s); query "
+              f"{wall:.3f} s wall, sharded plan {prep_s:.3f} s, peak "
+              f"{peak:.1f} MB; launches trie_level {launches['trie_level']}"
+              f", traverse_step {steps} ({attempts} attempt(s) at cap_local "
+              f"{cap_local}, {per_loci} loci a shard)")
+        for d, sh in enumerate(shards):
+            phase(tag, f"(a) shard {d} on {sh['device']}: {sh['keys']} keys, "
+                  f"plan {sh['plan_ms']:.1f} ms (host), levels "
+                  f"{sh['trie_ms']:.4f} ms, traversal {sh['traversal_ms']:.4f}"
+                  f" ms (device), {sh['loci']} loci")
+        if name == "card named twice":
+            mesh_finder = mf
+        else:
+            del mf
+
+    # (b) --mismatches 1 on the mesh, the first MESH_MM_READS reads
+    names, packed = FastxStream(fastq).read_chunk_packed(MESH_MM_READS)
+    small = Records(names, rec_offset=0, packed=packed)
+    outs = {}
+    for label, f in (("single", finder), ("mesh", mesh_finder)):
+        f.seed_mismatches = 1
+        try:
+            s_seeds = f.get_seeds(small)
+            s_index = f.index_reads(s_seeds)
+            t0 = time.monotonic()
+            rows, launches, wall, prep_s, _ = _mesh_query(f, s_seeds,
+                                                          s_index)
+            outs[label] = (rows, launches, time.monotonic() - t0, wall,
+                           prep_s)
+        finally:
+            f.seed_mismatches = 0
+    (rows1, _, t1, _, _), (rowsm, lm, tm, wm, pm) = outs["single"], \
+        outs["mesh"]
+    refine4 = lm["range_refine4"]
+    require(len(rowsm) > 0 and rowsm.tobytes() == rows1.tobytes(),
+            f"[mesh] (b) --mismatches 1: mesh {len(rowsm)} hits, single "
+            f"{len(rows1)}")
+    require(lm == {**ZERO_COUNTS, "trie_level": 2 * levels,
+                   "range_refine4": refine4}
+            and refine4 > 0 and refine4 % (2 * SEED_LEN) == 0,
+            f"[mesh] (b) launched {lm}")
+    res["b"] = {"reads": MESH_MM_READS, "hits": len(rowsm),
+                "launches": lm, "query_wall_s": wm, "prepare_s": pm,
+                "total_s": tm, "single_total_s": t1}
+    phase(tag, f"(b) --mismatches 1, first {MESH_MM_READS} reads: {len(rowsm)}"
+          f" hits byte-identical to the single-device finder's; mesh "
+          f"plan {pm:.3f} s + query {wm:.3f} s (single {t1:.3f} s in all); "
+          f"range_refine4 {refine4}, trie_level {lm['trie_level']}")
+
+    # (c) two processes sharing the card, gloo on localhost
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    out_json = os.path.join(tmp, "mh.json")
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "psi_tpu_torch.tools.multihost_worker",
+         str(port), str(i), "2", out_json, "--device", card.type, "--gfa",
+         gfa,
+         "--fastq", fastq, "--index", prefix, "--chunk", str(chunk), "-l",
+         str(SEED_LEN), "--expect", expect_path],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in range(2)]
+    errors = []
+    try:
+        for i, proc in enumerate(procs):
+            try:
+                _, err = proc.communicate(timeout=WORKER_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                errors.append(f"process {i} timed out after "
+                              f"{WORKER_TIMEOUT_S} s")
+                continue
+            if proc.returncode != 0:
+                errors.append(f"process {i} exited {proc.returncode}: "
+                              f"{err.decode()[-3000:]}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    require(not errors, "[mesh] (c): " + "; ".join(errors))
+    with open(out_json) as fh:
+        mh = json.load(fh)
+    mh["wall_s"] = time.monotonic() - t0
+    require(mh["count_ok"] and mh["trie_ok"] and mh["disjoint"]
+            and mh["shard_ok"] and mh["full_ok"]
+            and mh["pipeline_hits"] == len(want),
+            f"[mesh] (c) failed its checks: {mh}")
+    for q, pr in enumerate(mh["processes"]):
+        for mode in ("shard", "full"):
+            got = pr[f"launches_{mode}"]
+            require(got["fm_fused.trie_level"] == levels
+                    and got["traverse.traverse_step"] > 0
+                    and got["traverse.traverse_step"] % SEED_LEN == 0
+                    and got["traverse.range_refine4"] == 0
+                    and got["fm_pallas.lf_pair"] == 0,
+                    f"[mesh] (c) process {q} launched {got} ({mode})")
+    res["c"] = mh
+    pr0, pr1 = mh["processes"]
+    phase(tag, f"(c) two processes on the card: sharded count and trie "
+          f"search equal the oracle; PSI_MH_EMIT=shard streams disjoint "
+          f"({pr0['hits_shard']} + {pr1['hits_shard']} hits), their union "
+          f"the single-device stream ({mh['pipeline_hits']}); full: both "
+          f"equal it; query walls shard {pr0['wall_shard_s']:.3f} / "
+          f"{pr1['wall_shard_s']:.3f} s, full {pr0['wall_full_s']:.3f} / "
+          f"{pr1['wall_full_s']:.3f} s; launches per process "
+          f"{pr0['launches_shard']}; {mh['wall_s']:.1f} s in all")
+
+    # (d) the dry run on the card named twice
+    reset_counters()
+    t0 = time.monotonic()
+    graft.dryrun_multichip(2, devices=(card, card))
+    dry_s = time.monotonic() - t0
+    dry = read_counters()
+    require(dry["occ_lf_pair"] > 0 and dry["trie_level"] > 0,
+            f"[mesh] (d) launched {dry}")
+    res["d"] = {"launches": dry, "wall_s": dry_s}
+    phase(tag, f"(d) graft.dryrun_multichip(2, card twice): every check "
+          f"passed in {dry_s:.2f} s; launches {dry}")
+
+    # (e) psikt --devices auto on the card: one card, the single route
+    reset_counters()
+    hits_auto, _, wall = run_cli(gfa, one, tmp, card.type, chunk, tag="_auto",
+                                 extra=("--devices", "auto", "-I", prefix))
+    auto = read_counters()
+    first = hits_cuda[hits_cuda[:, 2] < chunk]
+    expect_auto = ({**ZERO_COUNTS, "trie_level": levels}
+                   if torch.cuda.device_count() == 1 else None)
+    require(hits_auto.tobytes() == first.tobytes(),
+            f"[mesh] (e) psikt --devices auto: {len(hits_auto)} hits, "
+            f"[cli-cuda]'s chunk 1 {len(first)}")
+    require(expect_auto is None or auto == expect_auto,
+            f"[mesh] (e) launched {auto}, expected {expect_auto}")
+    res["e"] = {"hits": len(hits_auto), "launches": auto, "wall_s": wall}
+    phase(tag, f"(e) psikt --devices auto -I: {len(hits_auto)} hits, "
+          f"[cli-cuda]'s chunk 1 byte for byte; launches {auto}; wall "
+          f"{wall:.1f} s")
+    res["phase_s"] = time.monotonic() - t_phase
+    phase(tag, f"phase {res['phase_s']:.1f} s")
+    return res
+
+
+#: the worker's counter names for the kernels it counts
+WORKER_COUNTERS = {"trie_level": "fm_fused.trie_level",
+                   "traverse_step": "traverse.traverse_step",
+                   "range_refine4": "traverse.range_refine4",
+                   "occ_lf_pair": "fm_pallas.lf_pair"}
+
+
+def mesh_launches(mesh: dict, kname: str) -> dict:
+    """A kernel's launches on each run of [mesh]: (a) and (a) on two
+    cards, (b), each process of (c) under both emission modes, (d), (e);
+    empty when [mesh] never launched it."""
+    out = {run: mesh[run]["launches"][kname]
+           for run in ("a", "a_two_cards", "b", "d", "e") if run in mesh}
+    wname = WORKER_COUNTERS.get(kname)
+    if wname:
+        out["c"] = [{mode: pr[f"launches_{mode}"][wname]
+                     for mode in ("shard", "full")}
+                    for pr in mesh["c"]["processes"]]
+    any_launch = any(v for v in out.values() if isinstance(v, int)) or any(
+        n for pr in out.get("c", []) for n in pr.values())
+    return out if any_launch else {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ref-len", type=int, default=REF_LEN,
@@ -2621,6 +2958,10 @@ def main(argv=None) -> int:
         extra["tools"] = tools_phase(finder, tmp, gfa)
         phase("tools", f"[baseline] and [tools] "
               f"{time.monotonic() - t_phase:.1f} s")
+        extra["mesh"] = mesh_phase(
+            finder, reads, seeds, index, tmp, gfa, fastq,
+            os.path.join(tmp, "pidx"), one, args.chunk, hits_cuda,
+            extra["levels"], finder.device)
         del finder, reads, seeds, index
         torch.cuda.empty_cache()
 
@@ -2670,6 +3011,7 @@ def main(argv=None) -> int:
             "library_ms": rec.get("library_ms"),
             "library": LIBRARY[kname],
             "shape": rec["shape"],
+            "mesh_launches": mesh_launches(extra["mesh"], kname),
         })
         if kname == "rank":
             kernels[-1]["replay_launches"] = rec["replay_launches"]

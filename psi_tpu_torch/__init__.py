@@ -15,9 +15,13 @@ find:
   ops/fm_trie.py   -- trie schedule, prepare, level routes, expand + locate
   ops/traverse.py  -- the host WalkTree (off-path route)
   seed_finder.py   -- SeedFinder: psi_tpu's host lifecycle, these routes
-  cli.py           -- the psikt chunk loop with `--device`
+  parallel/        -- the device mesh, the sharded query pipeline and the
+                      multi-process runtime (gloo) with the sharded index
+  graft.py         -- a batched search and the multi-device dry run
+  cli.py           -- the psikt chunk loop with `--device` and `--devices`
   tools/           -- psi_tpu's tool CLIs (pindexctl, loci_stats, sloci,
-                      ggsim, dindexctl, alice) and the chip sweeps
+                      ggsim, dindexctl, alice), the multi-process worker
+                      and the chip sweeps
 
 The host layers (graph, graphiter, pathutil, pathset, fmindex, records,
 seed, stats, simulate, io, ops/kmers, tools/ggsim) are copies of

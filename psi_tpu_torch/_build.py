@@ -200,10 +200,14 @@ def call(name: str, argtypes: list, restype, *args):
     return fn(*args)
 
 
-def launch(name: str, argtypes: list, *args) -> None:
-    """Call C entry `name` (declared with `argtypes`) and raise on a
-    non-zero cudaError_t."""
-    rc = call(name, argtypes, ctypes.c_int, *args)
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call C entry `name` (declared with `argtypes`) with `device` the
+    current CUDA device, so that the launch, the stream the caller passes
+    (`stream_ptr(device)`) and the tensors' pointers all belong to it
+    whichever device was current before; raise on a non-zero
+    cudaError_t."""
+    with torch.cuda.device(device):
+        rc = call(name, argtypes, ctypes.c_int, *args)
     if rc != 0:
         msg = load().psi_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc}: {msg}")

@@ -10,7 +10,11 @@ dense occ table), PSI_DEVICE_LOCATE=0 locates on the host. `-m/-M`
 build the distance index over the insert-size range (on `--device` under
 PSI_DINDEX_BUILD=device); with `-I PREFIX` it is saved as
 PREFIX_dist_mat_m{dmin}M{dmax}.npz beside the path index and loaded from
-there by later runs, as psi_tpu does.
+there by later runs, as psi_tpu does. `--devices N|auto` (default:
+every visible card on cuda, one device on the CPU; PSI_DEVICES too)
+shards the query over a mesh of that many devices of `--device`'s type
+(psi_tpu_torch/parallel): `--device cpu --devices 2` runs it on two
+virtual shards of the CPU.
 
     python -m psi_tpu_torch.cli GRAPH -f READS -l 20 -n 2 -P -c 100000 \\
         --device cuda -o hits.bin [--report report.json]
@@ -110,8 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
         "runs their plain PyTorch versions",
     )
     p.add_argument(
-        "--devices", default=None, metavar="1",
-        help="device count (only one device is supported)",
+        "--devices", default=None, metavar="N|auto",
+        help="device-mesh width for the sharded query pipeline: a "
+        "count, or 'auto' for all local devices (default: all devices "
+        "on accelerator backends, 1 on CPU; also via PSI_DEVICES)",
     )
     p.add_argument(
         "--resume", action="store_true",

@@ -316,7 +316,7 @@ def probe_bisect(t: ProbeTables, qkey, q_src, q_dst, s_lo,
                          "[nb, 4] (nb >= 1) must be 16-byte aligned")
     out = torch.empty(B, dtype=torch.bool, device=dev)
     _build.launch(
-        "psi_dindex_probe", _PROBE_ARGTYPES,
+        "psi_dindex_probe", _PROBE_ARGTYPES, dev,
         t.pk.data_ptr(), t.rows.data_ptr(), t.top.data_ptr(),
         t.sub.data_ptr(), t.shift, t.top.shape[0], n, qkey.data_ptr(),
         q_src.data_ptr(), q_dst.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(),
@@ -347,7 +347,7 @@ def probe_bisect_flat(t: ProbeTables, qkey, q_src, q_dst, s_lo,
         return torch.zeros(B, dtype=torch.bool, device=dev)
     out = torch.empty(B, dtype=torch.bool, device=dev)
     _build.launch(
-        "psi_dindex_probe_flat", _FLAT_ARGTYPES,
+        "psi_dindex_probe_flat", _FLAT_ARGTYPES, dev,
         t.pk.data_ptr(), t.src.data_ptr(), t.dst.data_ptr(),
         t.iv_lo.data_ptr(), t.iv_hi.data_ptr(), n, qkey.data_ptr(),
         q_src.data_ptr(), q_dst.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(),

@@ -76,7 +76,7 @@ def trie_level(payloadC: torch.Tensor, C: torch.Tensor,
     _build.check_int32("trie_level", dev, C=C)
     m = parent.shape[0]
     _build.launch(
-        "psi_trie_level", _TRIE_LEVEL_ARGTYPES,
+        "psi_trie_level", _TRIE_LEVEL_ARGTYPES, dev,
         payloadC.data_ptr(), payloadC.shape[1], C.data_ptr(),
         parent.data_ptr(), char.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         out_lo.data_ptr(), out_hi.data_ptr(), m, _build.stream_ptr(dev),

@@ -76,7 +76,7 @@ def gather_occ_rows(occ: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return rows
     _build.launch(
-        "psi_occ_gather", _OCC_GATHER_ARGTYPES,
+        "psi_occ_gather", _OCC_GATHER_ARGTYPES, dev,
         occ.data_ptr(), occ.shape[1], positions.data_ptr(), rows.data_ptr(),
         m, _build.stream_ptr(dev),
     )
@@ -134,7 +134,7 @@ def lf_pair(occ: torch.Tensor, C: torch.Tensor, c: torch.Tensor,
     if m == 0:
         return lo_out, hi_out
     _build.launch(
-        "psi_occ_lf_pair", _OCC_LF_PAIR_ARGTYPES,
+        "psi_occ_lf_pair", _OCC_LF_PAIR_ARGTYPES, dev,
         occ.data_ptr(), occ.shape[1], C.data_ptr(), c.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), lo_out.data_ptr(), hi_out.data_ptr(),
         m, _build.stream_ptr(dev),

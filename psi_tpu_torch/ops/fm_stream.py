@@ -245,7 +245,7 @@ def rank4_pair_stream(arrays: StreamArrays, lo: torch.Tensor,
     r4lo = torch.empty((4, m), dtype=torch.int32, device=dev)
     r4hi = torch.empty((4, m), dtype=torch.int32, device=dev)
     _build.launch(
-        "psi_rank4_pair", _RANK4_ARGTYPES,
+        "psi_rank4_pair", _RANK4_ARGTYPES, dev,
         arrays.payloadT.data_ptr(), arrays.payloadT.shape[1],
         lo.data_ptr(), hi.data_ptr(), r4lo.data_ptr(), r4hi.data_ptr(), m,
         _build.stream_ptr(dev),
@@ -297,7 +297,7 @@ def compact_children(r4lo: torch.Tensor, r4hi: torch.Tensor,
     if m == 0:
         return lo, hi
     _build.launch(
-        "psi_compact", _COMPACT_ARGTYPES,
+        "psi_compact", _COMPACT_ARGTYPES, dev,
         r4lo.data_ptr(), r4hi.data_ptr(), r4lo.shape[1],
         parent.data_ptr(), char.data_ptr(), C.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), m, _build.stream_ptr(dev),
@@ -333,7 +333,7 @@ def rank4_stream(arrays: StreamArrays, pos: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     _build.launch(
-        "psi_rank4", _RANK4_ONE_ARGTYPES,
+        "psi_rank4", _RANK4_ONE_ARGTYPES, dev,
         arrays.payloadR.data_ptr(), pos.data_ptr(), out.data_ptr(), m,
         _build.stream_ptr(dev),
     )
@@ -393,7 +393,7 @@ def rank_stream(arrays: StreamArrays, chars: torch.Tensor,
     if m == 0:
         return out
     _build.launch(
-        "psi_rank", _RANK_ARGTYPES,
+        "psi_rank", _RANK_ARGTYPES, dev,
         arrays.payloadR.data_ptr(), chars.data_ptr(), pos.data_ptr(),
         out.data_ptr(), m, _build.stream_ptr(dev),
     )
@@ -433,7 +433,7 @@ def rank_lf_pair(arrays: StreamArrays, chars: torch.Tensor, lo: torch.Tensor,
     if m == 0:
         return lo_out, hi_out
     _build.launch(
-        "psi_rank_lf_pair", _RANK_LF_PAIR_ARGTYPES,
+        "psi_rank_lf_pair", _RANK_LF_PAIR_ARGTYPES, dev,
         arrays.payloadR.data_ptr(), arrays.C.data_ptr(), chars.data_ptr(),
         lo.data_ptr(), hi.data_ptr(), lo_out.data_ptr(), hi_out.data_ptr(),
         m, _build.stream_ptr(dev),

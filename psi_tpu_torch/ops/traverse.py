@@ -419,7 +419,7 @@ def range_refine(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
     if n == 0:
         return lo_out, hi_out
     _build.launch(
-        "psi_range_refine", _REFINE_ARGTYPES,
+        "psi_range_refine", _REFINE_ARGTYPES, dev,
         seeds.occ.data_ptr(), seeds.planes.data_ptr(), seeds.occ.shape[1],
         depth, lo.data_ptr(), hi.data_ptr(), c.data_ptr(), lo_out.data_ptr(),
         hi_out.data_ptr(), n, _build.stream_ptr(dev),
@@ -447,7 +447,7 @@ def range_refine4(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
     if n == 0:
         return lo4, hi4
     _build.launch(
-        "psi_range_refine4", _REFINE4_ARGTYPES,
+        "psi_range_refine4", _REFINE4_ARGTYPES, dev,
         seeds.occ.data_ptr(), seeds.planes.data_ptr(), seeds.occ.shape[1],
         depth, lo.data_ptr(), hi.data_ptr(), lo4.data_ptr(), hi4.data_ptr(),
         n, _build.stream_ptr(dev),
@@ -620,20 +620,19 @@ def traverse_step(g: GraphArrays, seeds: SeedsArrays, t: int,
     counts = torch.empty(5, dtype=torch.int64, device=dev)
     overflow = torch.empty((), dtype=torch.bool, device=dev)
     scratch = _step_scratch(dev, cap)
-    with torch.cuda.device(dev):
-        _build.launch(
-            "psi_traverse_step", _STEP_ARGTYPES,
-            g.labels.data_ptr(), g.labels.numel(), g.label_offsets.data_ptr(),
-            g.out_indptr.data_ptr(), g.out_indices.data_ptr(),
-            g.out_indices.numel(), seeds.occ.data_ptr(),
-            seeds.planes.data_ptr(), seeds.occ.shape[1], t,
-            state.locus_idx.data_ptr(), state.node.data_ptr(),
-            state.off.data_ptr(), state.lo.data_ptr(), state.hi.data_ptr(),
-            n_used.data_ptr(), state.overflow.data_ptr(),
-            state.tstats.data_ptr(), out.data_ptr(), counts.data_ptr(),
-            overflow.data_ptr(), scratch.data_ptr(), cap,
-            _build.stream_ptr(dev),
-        )
+    _build.launch(
+        "psi_traverse_step", _STEP_ARGTYPES, dev,
+        g.labels.data_ptr(), g.labels.numel(), g.label_offsets.data_ptr(),
+        g.out_indptr.data_ptr(), g.out_indices.data_ptr(),
+        g.out_indices.numel(), seeds.occ.data_ptr(),
+        seeds.planes.data_ptr(), seeds.occ.shape[1], t,
+        state.locus_idx.data_ptr(), state.node.data_ptr(),
+        state.off.data_ptr(), state.lo.data_ptr(), state.hi.data_ptr(),
+        n_used.data_ptr(), state.overflow.data_ptr(),
+        state.tstats.data_ptr(), out.data_ptr(), counts.data_ptr(),
+        overflow.data_ptr(), scratch.data_ptr(), cap,
+        _build.stream_ptr(dev),
+    )
     traverse_step.launches += 1
     return (TraverseState(*out.unbind(0), overflow=overflow,
                           tstats=counts[2:]), counts[0], counts[1])

@@ -27,11 +27,17 @@ the seed join and emission. The device routes are this package's:
   * the distance index (`create_distance_index`, `verify_distance`, its
     artifact saved and loaded with the path index): psi_tpu's lifecycle
     over this package's dindex.py, built on the finder's device under
-    PSI_DINDEX_BUILD=device.
+    PSI_DINDEX_BUILD=device;
+  * on a device mesh (`devices`, PSI_DEVICES; parallel/mesh.py), the
+    on-path trie and chain sharded over the distinct keys and the
+    off-path traversal sharded over the loci, each shard on its device
+    with the single-device kernels; on a multi-process mesh each process
+    emits its own shards' hits (PSI_MH_EMIT=shard, the default) or the
+    whole stream (full).
 
-One device only; the card unless `device` names the CPU. What this
-package does not port yet raises NotImplementedError naming the
-ROADMAP.md item that ports it.
+The card unless `device` names the CPU; `devices` picks how many devices
+of that type the query pipeline spans (one, the default on the CPU and
+with one card, takes the single-device routes).
 """
 
 from __future__ import annotations
@@ -75,11 +81,6 @@ class SeedFinder:
         devices: Optional[object] = None,
         device: torch.device | str | None = None,
     ):
-        if devices is not None and str(devices) != "1":
-            raise NotImplementedError(
-                "multi-device query pipelines are not ported yet "
-                "(ROADMAP.md Queue 1, item 10)"
-            )
         #: the query device: the card unless the caller names the CPU
         self.device = resolve("cuda") if device is None else torch.device(device)
         self.graph = graph
@@ -93,6 +94,13 @@ class SeedFinder:
         self.dindex = DistanceIndex(0, 0)
         self.d = (0, 0)
         self._rng_seed = rng_seed
+        #: device-mesh request: None = env PSI_DEVICES (default: every
+        #: visible card on cuda, one device on the CPU); "auto" = every
+        #: device of the finder's type; int N = the first N; a sequence
+        #: of devices of the finder's type (it may name a card twice)
+        self._devices_req = devices
+        self._mesh = None
+        self._mesh_repl = {}
         # device-side caches (built lazily)
         self._sa = None          # the dense SA, all the chain reads
         self._fm_arrays = None   # rank layout (gather route, MEM API)
@@ -105,6 +113,73 @@ class SeedFinder:
         self._trav_tree = None
         self._loci_np = None    # (n, (node ids, offsets), {cap: on device})
         self._prep_lock = threading.Lock()
+
+    # === device mesh (multi-device scale-out, SURVEY §2.3) ==================
+    def _get_mesh(self):
+        """Lazy 1-D "data" mesh of devices of the finder's type. The query
+        pipeline (on-path trie search and chain, off-path traversal)
+        shards over it whenever it spans > 1 device — the reference's
+        single-process chunk loop (ref: src/psikt.cpp:183-209) scaled
+        out. Selection: the `devices` ctor arg, else PSI_DEVICES ("auto"
+        or a count), else every card on cuda / one device on the CPU
+        (virtual CPU meshes are opt-in); capped at the devices there are
+        (over every process)."""
+        if self._mesh is False:
+            return None
+        if self._mesh is None:
+            from psi_tpu_torch.parallel import mesh as mesh_mod
+
+            req = self._devices_req
+            if req is None:
+                req = os.environ.get("PSI_DEVICES")
+            platform = self.device.type
+            if isinstance(req, (list, tuple)):
+                devs = [torch.device(d) for d in req]
+                kinds = {d.type for d in devs}
+                if kinds != {platform}:
+                    raise ValueError(
+                        f"devices {[str(d) for d in devs]}: a mesh holds "
+                        f"devices of the finder's type ({platform}) only")
+                mesh = mesh_mod.device_mesh(devices=devs)
+            else:
+                # None: every device there is (counted over every process)
+                if req is None:
+                    n = None if platform == "cuda" else 1
+                else:
+                    n = None if str(req) == "auto" else int(req)
+                mesh = None
+                if n is None or n > 1:
+                    total = mesh_mod.device_count(platform)
+                    n = total if n is None else min(n, total)
+                    if n > 1:
+                        mesh = mesh_mod.device_mesh(n, platform=platform)
+            if mesh is None or mesh.size <= 1:
+                self._mesh = False
+                return None
+            self._mesh = mesh
+        return self._mesh
+
+    def _get_mesh_repl(self, mesh, name: str, build):
+        """Per-mesh cache of replicated device arrays (index arrays are
+        placed once per distinct device, not per chunk)."""
+        key = (id(mesh), name)
+        if key not in self._mesh_repl:
+            from psi_tpu_torch.parallel.mesh import replicate
+
+            self._mesh_repl[key] = replicate(mesh, build())
+        return self._mesh_repl[key]
+
+    @staticmethod
+    def _mh_emit_sharded() -> bool:
+        """Process-sharded emission (multi-process mesh only): each
+        process fetches/joins/emits only its own shards' hits; merging is
+        concatenation of disjoint streams. On by default; PSI_MH_EMIT=full
+        makes every process compute the full stream."""
+        from psi_tpu_torch.parallel.distributed import process_count
+
+        if process_count() <= 1:
+            return False
+        return os.environ.get("PSI_MH_EMIT", "shard") != "full"
 
     # === path picking =======================================================
     def _set_context(self, context: int, patched: bool) -> int:
@@ -178,6 +253,7 @@ class SeedFinder:
         self._map_arrays = None
         self._stream_arrays = None
         self._ftab_np = None
+        self._mesh_repl = {}
 
     def index_paths(self):
         """(ref: seed_finder.hpp:1169-1176)"""
@@ -676,32 +752,80 @@ class SeedFinder:
             return
         _, _, search_keys, _ = self._onpath_search_keys(index)
         uniq, inv = np.unique(search_keys, return_inverse=True)
-        prepared = fm_trie.prepare(
-            uniq, self.seed_len, self._get_ftab(), device=self.device
-        )
+        mesh = self._get_mesh()
+        if mesh is not None:
+            from psi_tpu_torch.parallel.mesh import prepare_trie_sharded
+
+            prepared = prepare_trie_sharded(
+                mesh, uniq, self.seed_len, self.pindex.fm.size,
+                self._get_ftab(),
+            )
+        else:
+            prepared = fm_trie.prepare(
+                uniq, self.seed_len, self._get_ftab(), device=self.device
+            )
         index._onpath_prep = (uniq, inv, prepared)
 
     def _search_stream(self, search_keys: np.ndarray, k: int, prep=None):
         """Trie-batched backward search of search_keys (any order,
-        duplicates allowed), returned in input order as host (lo, hi).
-        `prep` is a (uniq, inv, PreparedTrie) from `prepare_onpath`."""
+        duplicates allowed), returned in input order as host (lo, hi,
+        local_mask). `prep` is a (uniq, inv, plan) from `prepare_onpath`.
+        local_mask is None except under process-sharded multi-process
+        emission, where it marks the search rows whose distinct key lives
+        on this process's shards (the caller restricts emission to them;
+        the merged stream is the concatenation of the processes' disjoint
+        streams)."""
         if prep is not None:
             uniq, inv, prepared = prep
         else:
             uniq, inv = np.unique(search_keys, return_inverse=True)
             prepared = None
-        lo, hi = fm_trie.trie_search(
-            self._get_stream_arrays(), uniq, k, ftab=self._get_ftab(),
-            prepared=prepared,
-        )
-        return lo[inv], hi[inv]
+        sarr = self._get_stream_arrays()
+        mesh = self._get_mesh()
+        lmask = None
+        if mesh is not None:
+            from psi_tpu_torch.parallel import mesh as mesh_mod
+
+            if prepared is not None and not isinstance(
+                prepared, mesh_mod.ShardedPreparedTrie
+            ):
+                prepared = None  # plan was built single-device; rebuild
+            if prepared is None:
+                prepared = mesh_mod.prepare_trie_sharded(
+                    mesh, uniq, k, self.pindex.fm.size, self._get_ftab()
+                )
+            lo, hi = mesh_mod.sharded_trie_search(
+                mesh, sarr, uniq, k, ftab=self._get_ftab(),
+                prepared=prepared,
+            )
+            if self._mh_emit_sharded():
+                m_u = np.zeros(len(uniq), dtype=bool)
+                per = prepared.per
+                for d in mesh.local_positions():
+                    if prepared.sizes[d]:
+                        m_u[d * per: d * per + prepared.sizes[d]] = True
+                lmask = m_u[inv]
+        else:
+            if prepared is not None and not isinstance(
+                prepared, fm_trie.PreparedTrie
+            ):
+                prepared = None
+            lo, hi = fm_trie.trie_search(
+                sarr, uniq, k, ftab=self._get_ftab(), prepared=prepared,
+            )
+        return lo[inv], hi[inv], lmask
 
     def _onpath_chain(self, index, search_keys: np.ndarray, thr: int):
         """Trie search -> counts download -> device expand + locate over
         the device-resident lo/hi -> one global position per hit.
         Returns (counts[search order], emit mask, fn -> join)."""
+        mesh = self._get_mesh()
+        if mesh is not None:
+            return self._onpath_chain_sharded(index, search_keys, thr, mesh)
         k = self.seed_len
         prep = getattr(index, "_onpath_prep", None)
+        if prep is not None and not isinstance(prep[2], fm_trie.PreparedTrie):
+            prep = None
         if prep is not None:
             uniq, inv, prepared = prep
         else:
@@ -744,6 +868,109 @@ class SeedFinder:
 
         return counts, emit, occurrences
 
+    def _onpath_chain_sharded(self, index, search_keys, thr: int, mesh):
+        """The device-chained on-path route on a multi-device mesh: the
+        trie kernels run per shard over the per-shard plans, only counts
+        come down, and each shard then expands + locates its own
+        device-resident ranges against its copy of the SA (gpos-only
+        download per shard, at cap = max(16, next_pow2(max shard
+        total))). Same transfer profile per device as the single-device
+        chain; the shared `_chain_join` and native psi_emit_join follow."""
+        from psi_tpu_torch.parallel import mesh as mesh_mod
+        from psi_tpu_torch.parallel.distributed import process_allgather
+
+        k = self.seed_len
+        prep = getattr(index, "_onpath_prep", None)
+        if prep is not None and not isinstance(
+            prep[2], mesh_mod.ShardedPreparedTrie
+        ):
+            prep = None
+        if prep is not None:
+            uniq, inv, prepared = prep
+        else:
+            uniq, inv = np.unique(search_keys, return_inverse=True)
+            prepared = mesh_mod.prepare_trie_sharded(
+                mesh, uniq, k, self.pindex.fm.size, self._get_ftab()
+            )
+        sarr_r = self._get_mesh_repl(mesh, "sarr", self._get_stream_arrays)
+        lo_d, hi_d, counts_d = mesh_mod._sharded_trie_device(
+            mesh, sarr_r, prepared, with_counts=True,
+        )
+        local = mesh.local_positions()
+        counts2 = process_allgather(
+            np.stack([counts_d[p].cpu().numpy() for p in local]))
+        D = mesh.shape["data"]
+        Npad = counts2.shape[1]
+        per = prepared.per
+        N = prepared.n
+        counts_u = np.zeros(N, dtype=np.int64)
+        for d in range(D):
+            if prepared.sizes[d]:
+                sl = slice(d * per, d * per + prepared.sizes[d])
+                counts_u[sl] = counts2[d][prepared.leaf_perms[d]]
+        counts = counts_u[inv].astype(np.int64)
+        thr32 = int(min(thr, np.iinfo(np.int32).max))
+        emit = (counts > 0) & (counts <= thr32)
+
+        def occurrences():
+            w2 = np.zeros((D, Npad), dtype=np.int64)
+            for d in range(D):
+                valid_d = np.arange(Npad) < prepared.sizes[d]
+                w2[d] = np.where(
+                    valid_d & (counts2[d] > 0) & (counts2[d] <= thr32),
+                    counts2[d], 0,
+                )
+            tot_d = w2.sum(axis=1)
+            emit_idx = np.nonzero(emit)[0]
+            if not int(tot_d.sum()):
+                z = np.zeros(0, dtype=np.int64)
+                return emit_idx, z, z, z
+            cap = max(16, 1 << (int(tot_d.max()) - 1).bit_length())
+            maps = self._get_map_arrays()
+            sa_r = self._get_mesh_repl(mesh, "sa", self._get_sa)
+            maps_r = self._get_mesh_repl(
+                mesh, "maps",
+                lambda: (maps.str_starts, maps.lengths, maps.seq_off),
+            )
+            local_only = self._mh_emit_sharded()
+            str_r, len_r, off_r = ([None if m is None else m[i]
+                                    for m in maps_r] for i in range(3))
+            gpos2 = mesh_mod.sharded_expand_locate(
+                mesh, sa_r, str_r, len_r, off_r, lo_d, hi_d,
+                np.asarray(prepared.sizes), thr32, k, cap,
+                local_only=local_only,
+            )
+            if local_only:
+                gpos2, local_ds = gpos2
+            else:
+                local_ds = np.ones(D, dtype=bool)
+            # local-only: the gpos stream holds only this process's
+            # shards; keys of other shards are masked out of the emit
+            # set, so the join never reads a missing shard's positions
+            # and the emitted hit stream is this process's disjoint
+            # slice of the global one
+            tot_emit = np.where(local_ds, tot_d, 0)
+            base_d = np.cumsum(tot_emit) - tot_emit
+            gpos_stream = np.concatenate(
+                [gpos2[d, : tot_emit[d]] for d in range(D)]
+            ).astype(np.int64)
+            occ_start_u = np.zeros(N, dtype=np.int64)
+            local_key = np.zeros(N, dtype=bool)
+            for d in range(D):
+                if prepared.sizes[d]:
+                    sl = slice(d * per, d * per + prepared.sizes[d])
+                    occ_start_u[sl] = (
+                        (np.cumsum(w2[d]) - w2[d])[prepared.leaf_perms[d]]
+                        + base_d[d]
+                    )
+                    local_key[sl] = local_ds[d]
+            emit_loc = emit if local_ds.all() else (emit & local_key[inv])
+            return self._chain_join(
+                counts, emit_loc, inv, occ_start_u, gpos_stream
+            )
+
+        return counts, emit, occurrences
+
     def _onpath_search_locate(self, index, search_keys: np.ndarray, thr):
         """psi_tpu's non-chain on-path routes: the SA ranges of every
         search key, from the trie search (PSI_STREAM on) or from the
@@ -755,8 +982,9 @@ class SeedFinder:
         k = self.seed_len
         fm = self.pindex.fm
         pm = self._path_map
+        lmask = None
         if self._stream_enabled():
-            lo, hi = self._search_stream(
+            lo, hi, lmask = self._search_stream(
                 search_keys, k, prep=getattr(index, "_onpath_prep", None)
             )
         else:
@@ -770,6 +998,10 @@ class SeedFinder:
         emit = present & (counts <= thr)
         tstats.add_seed_gocc_bulk(int(counts[emit].sum()), int(emit.sum()))
         tstats.inc_gocc_skips(int((present & ~emit).sum()))
+        if lmask is not None:
+            # process-sharded emission: locate and join only the local
+            # key shards (the stats above stay global)
+            emit = emit & lmask
         if not emit.any():
             return None
         emit_idx = np.nonzero(emit)[0]
@@ -1196,12 +1428,15 @@ class SeedFinder:
         """Issue the off-path traversal: the WalkTree when there are no
         mismatches and the tree is cached and fits its cap, else the
         frontier traversal queued on the device (its k steps need no host
-        sync, so the on-path route that follows overlaps it). Returns a
-        tagged handle for _traverse_collect, or None when off-path does
-        not apply."""
+        sync, so the on-path route that follows overlaps it). Under a
+        mesh, the loci-sharded traversal on every shard instead (never
+        the WalkTree), at cap_local = max(4096, next_pow2(loci per
+        shard)). Returns a tagged handle for _traverse_collect, or None
+        when off-path does not apply."""
         if not self.starting_loci or index.size == 0:
             return None
-        if not self.seed_mismatches and cap is None:
+        mesh = self._get_mesh()
+        if mesh is None and not self.seed_mismatches and cap is None:
             tree = self._get_trav_tree()
             if tree is not None:
                 return ("tree", tree)
@@ -1209,6 +1444,20 @@ class SeedFinder:
             g = self._get_graph_arrays()
         if sa is None:
             sa = trav.seeds_to_device(index, self.device)
+        if mesh is not None:
+            from psi_tpu_torch.parallel.mesh import sharded_traverse_dispatch
+
+            n = len(self.starting_loci)
+            D = mesh.shape["data"]
+            per = max(-(-n // D), 1)
+            if cap is None:
+                cap = max(1 << 12, 1 << (per - 1).bit_length())
+            sn, so = self._get_loci_np()
+            handle = sharded_traverse_dispatch(
+                mesh, g, sa, sn, so, self.seed_len, cap,
+                max_mm=self.seed_mismatches,
+            )
+            return ("mesh", handle, cap, g, sa, mesh)
         n = len(self.starting_loci)
         if cap is None:
             cap = max(1 << 15, 1 << (n - 1).bit_length())
@@ -1234,6 +1483,8 @@ class SeedFinder:
             return trav.traverse_columnar_from_states(
                 index, self.starting_loci, locus_idx, lo, hi, self.seed_len,
             )
+        if pending[0] == "mesh":
+            return self._traverse_collect_sharded(index, pending)
         _, packed_d, cap, g, sa = pending
         while True:
             packed = packed_d.cpu().numpy()
@@ -1256,6 +1507,48 @@ class SeedFinder:
             packed[cap: cap + n_used],
             packed[2 * cap: 2 * cap + n_used],
             self.seed_len,
+        )
+
+    def _traverse_collect_sharded(self, index: SeedsIndex, pending):
+        """Fetch a mesh-mode _traverse_dispatch result (cap-doubling
+        retry while any shard overflows) and assemble the columnar
+        survivors (this process's shards only under process-sharded
+        emission)."""
+        from psi_tpu_torch.parallel.mesh import (
+            sharded_traverse_collect, sharded_traverse_dispatch,
+        )
+
+        _, handle, cap_local, g, sa, mesh = pending
+        sn, so = self._get_loci_np()
+        local_only = self._mh_emit_sharded()
+        while True:
+            li, lo, hi, nu, ov, ts, local_ds = sharded_traverse_collect(
+                handle, local_only=local_only
+            )
+            # overflow is gathered even in local-only mode: the
+            # cap-doubling re-dispatch is a collective decision
+            if ov.any():
+                cap_local *= 2
+                handle = sharded_traverse_dispatch(
+                    mesh, g, sa, sn, so, self.seed_len, cap_local,
+                    max_mm=self.seed_mismatches,
+                )
+                continue
+            break
+        if not self.seed_mismatches:
+            n_surv = int(nu.sum())
+            self.stats.get_this_thread_stats().add_traversal(
+                int(ts[:, 0].sum()), int(ts[:, 1].sum()) + n_surv,
+                int(ts[:, 2].sum()) + n_surv * self.seed_len,
+            )
+        # local-only: join/emit only this process's loci shards (the
+        # global stream is the concatenation of the disjoint per-process
+        # streams; SURVEY §5 order-insensitive emission)
+        nu_emit = np.where(local_ds, nu, 0)
+        keep = [np.concatenate([a[d, : nu_emit[d]] for d in range(len(a))])
+                for a in (li, lo, hi)]
+        return trav.traverse_columnar_from_states(
+            index, self.starting_loci, *keep, self.seed_len,
         )
 
     @staticmethod

@@ -861,3 +861,66 @@ def test_dindex_device_build_matches_native(dev, dmax):
     for a, b in zip(got, want, strict=True):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _mesh_hits(devices, dev, mm):
+    g = make_pangenome_graph(20_000, 0.03, seed=3)
+    itr = HaplotyperRandomIter(g, seed=4)
+    hap = Path(g)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = sequence(hap)
+    rng = np.random.RandomState(5)
+    reads = Records([f"r{i}" for i in range(400)],
+                    [hs[p:p + 80] for p in rng.randint(0, len(hs) - 80, 400)])
+    f = SeedFinder(g, 20, devices=devices, seed_mismatches=mm, device=dev)
+    f.create_path_index(1, patched=False)
+    seeds = f.get_seeds(reads)
+    index = f.index_reads(seeds)
+    f.prepare_onpath(index)
+    n0 = (fm_fused.trie_level.launches, trav.traverse_step.launches,
+          trav.range_refine4.launches)
+    hits = f.seeds_all_arrays(seeds, index)
+    n1 = (fm_fused.trie_level.launches, trav.traverse_step.launches,
+          trav.range_refine4.launches)
+    order = ["node_id", "node_offset", "read_id", "read_offset",
+             "match_len", "gocc"]
+    return np.sort(hits, order=order), [b - a for a, b in zip(n0, n1)], f
+
+
+@pytest.mark.parametrize("mm", [0, 1])
+def test_mesh_card_named_twice_matches_single(dev, mm):
+    """SeedFinder on a mesh naming the card twice: the sharded chain and
+    the loci-sharded traversal (or with one mismatch range_refine4) on
+    the card, the single-device finder's lexsorted hits, with the level
+    kernels launched once a level a shard."""
+    multi, launches, f = _mesh_hits((dev, dev), dev, mm)
+    single, _, _ = _mesh_hits(1, dev, mm)
+    assert f._get_mesh().size == 2 and len(single) > 0
+    np.testing.assert_array_equal(multi, single)
+    levels, steps, refine4 = launches
+    assert levels > 0 and levels % 2 == 0
+    assert (refine4 if mm else steps) % (2 * 20) == 0
+    assert (refine4 if mm else steps) > 0
+
+
+def test_launch_on_a_second_card_while_the_first_is_current():
+    """With cuda:0 current, a kernel on cuda:1's tensors runs on cuda:1
+    (the launch enters its tensors' device) and matches plain."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.RandomState(3)
+    occ = torch.from_numpy(np.cumsum(rng.randint(0, 2, (5001, 4)),
+                                     axis=0).astype(np.int32))
+    C = torch.tensor([0, 1, 9, 17, 25, 33, 41], dtype=torch.int32)
+    c = torch.from_numpy(rng.randint(1, 5, 3000).astype(np.int32))
+    lo = torch.from_numpy(rng.randint(0, 5001, 3000).astype(np.int32))
+    hi = torch.from_numpy(rng.randint(0, 5001, 3000).astype(np.int32))
+    want = fm_pallas.lf_pair_plain(occ, C, c, lo, hi)
+    one = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        got = fm_pallas.lf_pair(*(t.to(one) for t in (occ, C, c, lo, hi)))
+    for g, w in zip(got, want):
+        assert g.device == one
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

@@ -79,6 +79,17 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     finder.prepare_onpath(index)
     on, off = finder.seeds_all_arrays(seeds, index, split=True)
     assert len(on) > 0 and len(off) > 0, (len(on), len(off))
+    mesh_finder = SeedFinder(g, 12, device="cpu", devices=2)  # the mesh
+    mesh_finder.create_path_index(1, patched=False)
+    assert mesh_finder._get_mesh().shape == {"data": 2}
+    mseeds = mesh_finder.get_seeds(reads)
+    mindex = mesh_finder.index_reads(mseeds)
+    mesh_finder.prepare_onpath(mindex)
+    m_on, m_off = mesh_finder.seeds_all_arrays(mseeds, mindex, split=True)
+    assert (len(m_on), len(m_off)) == (len(on), len(off))
+    import psi_tpu_torch.graft
+    import psi_tpu_torch.parallel.distributed
+    import psi_tpu_torch.tools.multihost_worker
     os.environ["PSI_TRAV_CACHE"] = "0"       # the device traversal
     from psi_tpu_torch.ops import traverse as trav
     steps = []
@@ -157,13 +168,26 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.gather_sweep", ["main"]),
     ("psi_tpu_torch.tools.record_layouts", ["main"]),
     ("psi_tpu_torch.tools.probe_sweep", ["main", "probe_inputs"]),
+    ("psi_tpu_torch.parallel.mesh",
+     ["device_mesh", "replicate", "shard_batch", "sharded_backward_search",
+      "make_train_step", "prepare_trie_sharded", "sharded_trie_search",
+      "sharded_expand_locate", "sharded_traverse_dispatch",
+      "sharded_traverse_collect", "sharded_traverse"]),
+    ("psi_tpu_torch.parallel.distributed",
+     ["initialize_multihost", "process_count", "process_index",
+      "process_allgather", "put_global", "build_sharded_index",
+      "sharded_count", "sharded_count_2d", "sharded_locate",
+      "partition_paths_by_component"]),
+    ("psi_tpu_torch.graft", ["entry", "dryrun_multichip"]),
+    ("psi_tpu_torch.tools.multihost_worker", ["main"]),
 ])
 def test_tools_import_alone(module, names):
     """The timing helpers, the bacterial and dense cells, the sweep
     tools, the pair workload, the tool CLIs (dindexctl, alice, pindexctl,
     loci_stats, sloci, ggsim), the native baseline's binding and payload,
-    and the distance index's device modules import and have their
-    functions with jax, psi_tpu and chip_smoke blocked."""
+    the distance index's device modules, the multi-device modules
+    (parallel/), graft.py and the multi-process worker import and have
+    their functions with jax, psi_tpu and chip_smoke blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,

@@ -228,12 +228,13 @@ def test_all_exact_matches_matches_psi_tpu(finders):
 
 
 def test_not_ported_yet_raises(dataset, monkeypatch):
-    """Multi-device pipelines (item 10) still raise; mismatches, an
-    over-cap WalkTree (the tree route gives way to the device traversal)
-    and the distance index no longer do."""
+    """Nothing raises as unported any more: multi-device pipelines (item
+    10) run on a mesh, on the CPU too (tests/test_torch_mesh.py holds
+    them to psi_tpu); mismatches, an over-cap WalkTree (the tree route
+    gives way to the device traversal) and the distance index run."""
     graph = make_pangenome_graph(3000, 0.02, seed=1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SeedFinder(graph, 12, devices=2)
+    mesh = SeedFinder(graph, 12, devices=2, device="cpu")._get_mesh()
+    assert mesh.shape == {"data": 2}
     assert SeedFinder(graph, 12, seed_mismatches=1,
                       device="cpu").seed_mismatches == 1
     finder = SeedFinder(graph, 12, device="cpu")
