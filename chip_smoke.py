@@ -171,7 +171,33 @@ exits non-zero and prints no result):
     the card named twice; (e) psikt --devices auto -I on chunk 1: with
     one card the single route, [cli-cuda]'s chunk-1 hits byte for byte.
     Each kernel of the kernels line gains `mesh_launches`, its launches
-    in each of these runs.
+    in each of these runs;
+19. [chr-scale] psi_tpu's chromosome-scale configuration
+    (psi_tpu_torch/tools/chr_scale.py: a 4-component pan-genome, variant
+    rate 0.01, 20% insertions, k = 30, 6 patched paths with context 30,
+    loci every 10 bp, the distance index over (300, 500)) at --chr-mbp
+    Mbp (CHR_MBP), written as GFA with 8 chunks of 20,000 error-free 150
+    bp reads: (a) psikt -l 30 -n 6 -t 30 -e 10 -m 300 -M 500 -c 20000 -I
+    on the card, the index built and saved once, launch counters set to
+    0 just before and read just after (trie_level once a level and
+    chunk, traverse_step k an attempt only where the device traversal is
+    the route, nothing else), each host stage of the build timed, the
+    index chars, nodes, loci and WalkTree beside psi_tpu's recorded run,
+    the per-chunk legs and the sustained rates over chunks 2-8; (b) the
+    same command with --device cpu on the first 2,000 reads, the index
+    loaded, with the WalkTree and under PSI_TRAV_CACHE=0: lexsorted hit
+    streams byte-identical to (a)'s on those reads; (c) chr_scale.run's
+    stages on the loaded index; (d) trie_level at chunk 1's frontier and
+    traverse_step over the loci (every step, the whole cap) bit-equal to
+    their plain versions, with device, enqueued and plain times and
+    bounds that count the payload, graph and seeds tables as HBM traffic,
+    by bytes and by 32-byte sectors; (e) the native distance-index build
+    (intervals, seconds), the device build byte-identical to it (rounds,
+    wall, peak MB), and dindex_probe over 2^22 pairs drawn as [dindex]
+    (c) draws them, bit-equal to its plain version and the NumPy verify,
+    timed in turns with torch.searchsorted, beside its bounds. Each
+    kernel of the kernels line gains `chr_scale_launches`, its launches
+    in (a), and the three of (d) and (e) a `chr_scale` record.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -1333,6 +1359,47 @@ def step_work(n_used: int, new_n: int, n2: int, cap: int):
     return 20 * n_used + 20 * cap, 60 * formed, 20 * n_used + 20 * n2
 
 
+def step_table_work(g, seeds, t, state, n_used, cap):
+    """(bytes, sector bytes) of the graph and seeds tables that one
+    traverse_step reads, for a graph and a seeds index past L2: each
+    element read once, or each distinct 32-byte sector those elements
+    lie in. The live parents' label offsets and edge offsets, the edges
+    of those at a node's end, the label char and label offset of every
+    child formed, and the occ row and plane words of the block of its lo
+    and of its hi at depth t; step_work counts the state."""
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+    from psi_tpu_torch.records import BLOCK
+
+    dev = state.node.device
+    slot = torch.arange(cap, dtype=torch.int64, device=dev)
+    new_n, parent, node, off, _ = trav._fork(g, state.node, state.off,
+                                             n_used, slot, cap)
+    n, m = int(n_used), min(int(new_n), cap)
+    pn = state.node[:n].long().clamp(min=1)
+    at_end = state.off[:n].long() >= (g.label_offsets[pn].long()
+                                      - g.label_offsets[pn - 1].long())
+    ends = pn[at_end]
+    first, last = g.out_indptr[ends - 1].long(), g.out_indptr[ends].long()
+    edges = (torch.repeat_interleave(first, last - first)
+             + torch.arange(int((last - first).sum()), device=dev)
+             - torch.repeat_interleave(torch.cumsum(last - first, 0)
+                                       - (last - first), last - first))
+    cn, par = node[:m].long().clamp(min=1), parent[:m]
+    rows = t * seeds.occ.shape[1] + torch.cat(
+        [state.lo[par], state.hi[par]]).long() // BLOCK
+    tables = {"label_offsets": (4, torch.cat([pn - 1, pn, cn - 1])),
+              "out_indptr": (4, torch.cat([pn - 1, pn])),
+              "out_indices": (4, edges),
+              "labels": (4, g.label_offsets[cn - 1].long() + off[:m].long()),
+              "occ": (16, rows), "planes": (8, rows)}
+    elems = sum(size * n_unique(idx) for size, idx in tables.values())
+    sectors = sum(32 * n_unique((size * idx) >> 5)
+                  for size, idx in tables.values())
+    return elems, sectors
+
+
 def traversal_record(finder, index, k: int, tag: str):
     """The exact device traversal over the finder's loci and the chunk's
     seeds index on the card, the cap doubled from the route's until it
@@ -1407,11 +1474,19 @@ def traversal_record(finder, index, k: int, tag: str):
     bound_ms, bound_by, bytes_moved, ops = mean_bound(
         [(b, o) for b, o, _ in work])
     live_bound_ms = bound(sum(w[2] for w in work) / k, ops)[0]
+    tables = [step_table_work(*c) for c in calls]
+    table_bytes = bytes_moved + sum(b for b, _ in tables) / k
+    table_sector_bytes = bytes_moved + sum(sb for _, sb in tables) / k
+    hbm_bound_ms, hbm_bound_by = bound(table_bytes, ops)
+    sector_bound_ms, _ = bound(table_sector_bytes, ops)
     rec = {"max_abs_err": err, "ms": kernel_ms,
            "enqueued_ms": forms["fused"]["enqueued_us_per_step"] / 1e3,
            "plain_ms": forms["plain"]["busy_ms"] / k, "library_ms": None,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
            "ops": ops, "live_bound_ms": live_bound_ms,
+           "hbm_bound_ms": hbm_bound_ms, "hbm_bound_by": hbm_bound_by,
+           "hbm_bytes": table_bytes, "sector_bound_ms": sector_bound_ms,
+           "sector_bytes": table_sector_bytes,
            "shape": f"{cap} slots x {k} steps of traverse_device, {n} loci",
            "loci": n, "cap": cap, "attempts": attempts, "survivors":
            int(out[3]), "steps": steps, "forms": forms}
@@ -1425,7 +1500,11 @@ def traversal_record(finder, index, k: int, tag: str):
           f"(enqueued {f['enqueued_us_per_step']:.3f}, plain busy "
           f"{1e3 * rec['plain_ms']:.3f}); bound {1e3 * bound_ms:.3f} us by "
           f"{bound_by} ({bytes_moved / 1e6:.2f} MB/step), live-only "
-          f"{1e3 * live_bound_ms:.3f} us")
+          f"{1e3 * live_bound_ms:.3f} us; with the graph and seeds tables "
+          f"read from HBM {1e3 * hbm_bound_ms:.3f} us by {hbm_bound_by} "
+          f"({table_bytes / 1e6:.2f} MB/step), by their sectors "
+          f"{1e3 * sector_bound_ms:.3f} us "
+          f"({table_sector_bytes / 1e6:.2f} MB/step)")
     for name, fm in forms.items():
         events = (f", device by events {fm['device_ms']:.3f} ms"
                   if "device_ms" in fm else
@@ -1574,8 +1653,14 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
 
 # --- phases 8 to 12: the CLI ---------------------------------------------------
 
+#: psikt's flags of the bacterial cell: k = 20, 2 unpatched paths
+BACTERIAL_FLAGS = ("-l", str(SEED_LEN), "-n", str(N_PATHS), "-P")
+
+
 def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
-            tag: str = "", extra: tuple = ()):
+            tag: str = "", extra: tuple = (), flags: tuple = BACTERIAL_FLAGS):
+    """psikt on one cell (`flags`: its seed length and paths) through the
+    CLI's entry point: (lexsorted hits, report, wall seconds)."""
     import numpy as np
 
     from psi_tpu_torch import cli
@@ -1583,9 +1668,9 @@ def run_cli(gfa: str, fastq: str, tmp: str, device: str, chunk: int,
     out = os.path.join(tmp, f"hits_{device}{tag}.bin")
     report = os.path.join(tmp, f"report_{device}{tag}.json")
     t0 = time.monotonic()
-    rc = cli.main([gfa, "-f", fastq, "-l", str(SEED_LEN), "-n",
-                   str(N_PATHS), "-P", "-c", str(chunk), "--device", device,
-                   "-o", out, "--report", report, "-q", "-Q", *extra])
+    rc = cli.main([gfa, "-f", fastq, *flags, "-c", str(chunk), "--device",
+                   device, "-o", out, "--report", report, "-q", "-Q",
+                   *extra])
     wall = time.monotonic() - t0
     require(rc == 0, f"cli --device {device} returned {rc}")
     with open(report) as fh:
@@ -1878,6 +1963,49 @@ def verify_breakdown(idx, graph, v, o, u, p) -> dict:
             "host_after_s": wall - before - call - download}
 
 
+def device_build(graph, dmin: int, dmax: int, want, tag: str) -> dict:
+    """The distance index built on the card (PSI_DINDEX_BUILD=device, path
+    doubling), byte-identical to `want`, the native build: its rounds,
+    join pairs and pieces, wall seconds, CUDA-event ms and peak MB."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.dindex import DistanceIndex
+    from psi_tpu_torch.ops import dindex_build
+
+    orig, info = dindex_build.build_super_device, {}
+    dindex_build.build_super_device = (
+        lambda *a, **k: orig(*a, info=info, **k))
+    try:
+        with env("PSI_DINDEX_BUILD", "device"):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.monotonic()
+            start.record()
+            dev_idx = DistanceIndex.build(graph, dmin, dmax)
+            end.record()
+            end.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        dindex_build.build_super_device = orig
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e6
+    require(info.get("rounds", 0) > 0, "the device build did not run")
+    for name in ("src_indptr", "dst", "iv_lo", "iv_hi"):
+        a, b = getattr(dev_idx, name), getattr(want, name)
+        require(a.dtype == b.dtype and np.array_equal(a, b),
+                f"({dmin}, {dmax}): the device build's {name} differs "
+                f"from the native build's")
+    phase(tag, f"device build ({dmin}, {dmax}) byte-identical to native: "
+          f"{info['rounds']} rounds, {info['join_pairs']} join pairs in "
+          f"{info['pieces']} pieces; wall {wall:.3f} s, CUDA events "
+          f"{start.elapsed_time(end):.3f} ms, peak {peak:.1f} MB")
+    return {**info, "wall_s": wall, "events_ms": start.elapsed_time(end),
+            "peak_mb": peak}
+
+
 def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
     """[dindex]: the distance index on the bacterial cell's graph. (a) the
     native build at the three horizons; (b) the device build (path
@@ -1896,7 +2024,6 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
 
     from psi_tpu_torch.dindex import DistanceIndex, contract_chains
     from psi_tpu_torch.io import load_graph
-    from psi_tpu_torch.ops import dindex_build
     from psi_tpu_torch.ops import dindex_probe as dp
     from psi_tpu_torch.tools import alice, pairs
     from psi_tpu_torch.tools.ggsim import simulate_haplotypes
@@ -1934,42 +2061,9 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
               f"{save_s:.2f} s)")
 
     # (b) the device build, byte-identical to (a)
-    orig = dindex_build.build_super_device
     for dmin, dmax in DINDEX_HORIZONS[:2]:
-        info = {}
-        dindex_build.build_super_device = (
-            lambda *a, **k: orig(*a, info=info, **k))
-        try:
-            with env("PSI_DINDEX_BUILD", "device"):
-                torch.cuda.synchronize()
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                t0 = time.monotonic()
-                start.record()
-                dev_idx = DistanceIndex.build(graph, dmin, dmax)
-                end.record()
-                end.synchronize()
-                wall = time.monotonic() - t0
-        finally:
-            dindex_build.build_super_device = orig
-        peak = (torch.cuda.max_memory_allocated() - before) / 1e6
-        want = built[dmax][0]
-        require(info.get("rounds", 0) > 0, "the device build did not run")
-        for name in ("src_indptr", "dst", "iv_lo", "iv_hi"):
-            a, b = getattr(dev_idx, name), getattr(want, name)
-            require(a.dtype == b.dtype and np.array_equal(a, b),
-                    f"({dmin}, {dmax}): the device build's {name} differs "
-                    f"from the native build's")
-        facts["device"][f"{dmin},{dmax}"] = {
-            **info, "wall_s": wall, "events_ms": start.elapsed_time(end),
-            "peak_mb": peak}
-        phase(tag, f"device build ({dmin}, {dmax}) byte-identical to native: "
-              f"{info['rounds']} rounds, {info['join_pairs']} join pairs in "
-              f"{info['pieces']} pieces; wall {wall:.3f} s, CUDA events "
-              f"{start.elapsed_time(end):.3f} ms, peak {peak:.1f} MB")
-        del dev_idx
+        facts["device"][f"{dmin},{dmax}"] = device_build(
+            graph, dmin, dmax, built[dmax][0], tag)
 
     # (c) the pairs: haplotypes of the graph, 2^22 pairs per probed index
     t0 = time.monotonic()
@@ -2759,12 +2853,360 @@ def mesh_launches(mesh: dict, kname: str) -> dict:
     return out if any_launch else {}
 
 
+# --- phase 19: the chromosome-scale pipeline -------------------------------------
+
+#: the pan-genome of [chr-scale] in Mbp. psi_tpu's is 100 (a 172.5 M-char
+#: index), where the phase takes some 740 s on the H100's host and the
+#: whole run some 1,200 s, the run's time limit; 60 gives a ~103 M-char
+#: index, over 100 M chars, so payloadC stays over twice the 50 MB L2
+CHR_MBP = 60.0
+CHR_CHUNKS = 8          # chunks of chr_scale.CHUNK reads in [chr-scale] (a)
+CHR_CPU_READS = 2_000   # reads of the cuda = cpu checks, (b)
+#: psi_tpu's recorded run of this configuration (docs/BENCH_NOTES.md,
+#: "Chromosome scale on TPU"), printed beside the port's
+PSI_TPU_CHR = {"chars": "172.5 M", "nodes": "2.97 M", "loci": "92,034"}
+
+
+def trie_level_table_work(nbpad, parents, chars, lo, hi):
+    """(bytes, sector bytes, operations) of one trie_level launch for a
+    payloadC past L2: trie_level_work's arrays, plus each distinct 8-byte
+    payloadC entry that the children's (char, lo block) and (char, hi
+    block) name read once, or each distinct 32-byte sector those lie in
+    (char_sectors_per_child's count)."""
+    import torch
+
+    io_bytes, ops = trie_level_work(parents, chars, lo, hi)
+    p = parents.long()
+    words = torch.cat([(chars.long() - 1) * nbpad + (x[p].long() >> 5)
+                       for x in (lo, hi)])
+    return (io_bytes + 8 * n_unique(words),
+            io_bytes + 32 * n_unique(words >> 2), ops)
+
+
+def chr_trie_record(finder, index, tag: str) -> dict:
+    """trie_level at a chunk's frontier over the chr-scale index: every
+    level against its plain version, the device ms per level (CUDA
+    events, a spin kernel first; payloadC, 3.4x L2, cycles through HBM
+    from one run to the next), enqueued and plain ms, and three bounds:
+    the payload in L2 (the 10 Mchar rows' count), its entries from HBM,
+    and its sectors from HBM."""
+    import torch
+
+    from psi_tpu_torch.ops import fm_fused
+
+    finder.prepare_onpath(index)
+    uniq, _, prep = index._onpath_prep
+    sarr = finder._get_stream_arrays()
+    par, chs = prep.parents, prep.chars
+    levels, npad = par.shape
+    fronts, err = [(prep.lo0, prep.hi0)], 0
+    for j in range(levels):
+        out = (torch.empty_like(prep.lo0), torch.empty_like(prep.hi0))
+        fm_fused.trie_level(sarr.payloadC, sarr.C, par[j], chs[j],
+                            *fronts[j], *out)
+        want = fm_fused.trie_level_plain(sarr.payloadC, sarr.C, par[j],
+                                         chs[j], *fronts[j])
+        err = max(err, max_abs_err(out[0], want[0]),
+                  max_abs_err(out[1], want[1]))
+        fronts.append(out)
+    require(err == 0, f"trie_level differs from its plain version by {err}")
+
+    def fused():
+        return fm_fused.trie_fused(sarr, par, chs, prep.lo0, prep.hi0)
+
+    def plain():
+        for j in range(levels):
+            fm_fused.trie_level_plain(sarr.payloadC, sarr.C, par[j], chs[j],
+                                      *fronts[j])
+
+    ms = cuda_ms(fused, KERNEL_REPS) / levels
+    enq = enqueue_ms(fused, KERNEL_REPS) / levels
+    plain_ms = cuda_ms(plain, PLAIN_REPS) / levels
+    nbpad = sarr.payloadC.shape[1]
+    work = [trie_level_table_work(nbpad, par[j], chs[j], *fronts[j])
+            for j in range(levels)]
+    l2_ms, _, l2_bytes, ops = mean_bound(
+        [trie_level_work(par[j], chs[j], *fronts[j]) for j in range(levels)])
+    bound_ms, bound_by, table_bytes, _ = mean_bound([(b, o)
+                                                     for b, _, o in work])
+    sector_ms, _, sector_bytes, _ = mean_bound([(sb, o)
+                                                for _, sb, o in work])
+    sectors = sum(char_sectors_per_child(
+        nbpad, chs[j], fronts[j][0][par[j].long()],
+        fronts[j][1][par[j].long()]) for j in range(levels)) / levels
+    lo, hi = fronts[-1]
+    rec = {"max_abs_err": err, "ms": ms, "enqueued_ms": enq,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "hbm_bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": table_bytes, "ops": ops,
+           "sector_bound_ms": sector_ms, "sector_bytes": sector_bytes,
+           "l2_bound_ms": l2_ms, "l2_bytes": l2_bytes,
+           "sectors_per_child": sectors, "levels": levels, "npad": npad,
+           "keys": len(uniq), "payloadC_mb": nbytes(sarr.payloadC) / 1e6,
+           "nonempty": int((hi > lo)[:len(uniq)].sum()),
+           "shape": f"{npad} slots x {levels} levels, {sarr.n}-char index"}
+    phase(tag, f"(d) trie_level over {len(uniq)} keys ({npad} slots, "
+          f"{levels} levels, payloadC {rec['payloadC_mb']:.1f} MB): "
+          f"bit-equal to plain at every level; {1e3 * ms:.3f} us/level on "
+          f"the device (enqueued {1e3 * enq:.3f}, plain "
+          f"{1e3 * plain_ms:.3f}); bound with payloadC from HBM "
+          f"{1e3 * bound_ms:.3f} us by {bound_by} ({table_bytes / 1e6:.2f} "
+          f"MB/level), by its sectors {1e3 * sector_ms:.3f} us "
+          f"({sector_bytes / 1e6:.2f} MB), payloadC in L2 "
+          f"{1e3 * l2_ms:.3f} us; {sectors:.4f} payloadC sectors a child; "
+          f"{levels} launches a chunk")
+    return rec
+
+
+def chr_probe_record(idx, graph, tag: str) -> dict:
+    """dindex_probe over DINDEX_PAIRS pairs drawn as [dindex] (c) draws
+    them, on this graph and index: verify_batch_device (one probe
+    launch) equal to the NumPy verify_batch, the kernel bit-equal to
+    probe_bisect_plain, its device time in turns with
+    torch.searchsorted's (kernel, search, search, kernel), its enqueued
+    and plain times and its bounds by bytes and by sectors."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import dindex_probe as dp
+    from psi_tpu_torch.tools import pairs
+    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
+
+    dmin, dmax = idx.dmin, idx.dmax
+    t0 = time.monotonic()
+    haps = [h for _, h in simulate_haplotypes(graph, 2, seed=13)]
+    coords = pairs.hap_coords(graph, haps)
+    pr = pairs.sample_pairs(coords, DINDEX_PAIRS, 2 * dmax, seed=dmax)
+    v, o = pairs.loci(coords, pr["hap_a"], pr["pos_a"])
+    u, p = pairs.loci(coords, pr["hap_b"], pr["pos_b"])
+    draw_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    want = idx.verify_batch(graph, v, o, u, p)
+    host_s = time.monotonic() - t0
+    n0 = dp.probe_bisect.launches
+    with recorded(dp, "probe_bisect") as calls:
+        t0 = time.monotonic()
+        got = idx.verify_batch_device(graph, v, o, u, p)
+        route_s = time.monotonic() - t0
+    require(len(calls) == 1 and dp.probe_bisect.launches == n0 + 1,
+            f"verify_batch_device made {len(calls)} probe_bisect calls")
+    require(np.array_equal(got, want),
+            "verify_batch_device differs from verify_batch")
+    t, *q = calls[0]
+    kernel, plain = dp.probe_bisect(t, *q), dp.probe_bisect_plain(t, *q)
+    require(torch.equal(kernel, plain),
+            "the probe kernel differs from probe_bisect_plain")
+    turns = {"kernel": lambda: dp.probe_bisect(t, *q),
+             "search": lambda: torch.searchsorted(t.pk, q[0], right=True)}
+    timed = {name: [] for name in turns}
+    for name in (*turns, *reversed(turns)):
+        timed[name].append(cuda_ms(turns[name], KERNEL_REPS))
+    ms, lib_ms = (sum(x) / 2 for x in timed.values())
+    enq = enqueue_ms(turns["kernel"], KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: dp.probe_bisect_plain(t, *q), PLAIN_REPS)
+    bytes_moved, sector_bytes, ops, _ = probe_work(t, q)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    sector_ms, _ = bound(sector_bytes, ops)
+    B, n = q[0].numel(), t.pk.numel()
+    rec = {"max_abs_err": max_abs_err(kernel, plain), "ms": ms,
+           "enqueued_ms": enq, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "turns_ms": timed, "bound_ms": bound_ms, "hbm_bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": bytes_moved, "ops": ops,
+           "sector_bound_ms": sector_ms,
+           "sector_bytes": sector_bytes,
+           "sectors_per_pair": probe_sectors(t, q[0]), "rows": n,
+           "queries": B, "accepted": int(want.sum()),
+           "pairs_per_s": B / (ms / 1e3), "draw_s": draw_s,
+           "host_verify_s": host_s, "route_s": route_s,
+           "shape": f"{B} pairs over {n} rows ({dmin}, {dmax})"}
+    phase(tag, f"(e) dindex_probe: {B} pairs over {n} rows (drawn in "
+          f"{draw_s:.1f} s), {rec['accepted']} accepted; "
+          f"verify_batch_device (one launch) = verify_batch, the kernel "
+          f"bit-equal to plain; {1e3 * ms:.3f} us on the device "
+          f"(torch.searchsorted {1e3 * lib_ms:.3f} in turns, enqueued "
+          f"{1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}); bound "
+          f"{1e3 * bound_ms:.3f} us by {bound_by} ({bytes_moved / 1e6:.2f} "
+          f"MB), by sectors {1e3 * sector_ms:.3f} us "
+          f"({sector_bytes / 1e6:.2f} MB); {rec['sectors_per_pair']:.4f} "
+          f"table sectors a pair; verify_batch on the host {host_s:.2f} s, "
+          f"verify_batch_device {route_s:.2f} s")
+    return rec
+
+
+def chr_scale_phase(tmp: str, ref_mbp: float):
+    """[chr-scale]: psi_tpu's chromosome-scale run (tools/chr_scale.py)
+    through the port. (a) psikt over CHR_CHUNKS chunks on the card, the
+    index built and saved once; (b) cuda = cpu on the first
+    CHR_CPU_READS reads, the index loaded, with the WalkTree and under
+    PSI_TRAV_CACHE=0; (c) chr_scale.run's stages on the loaded index; (d)
+    trie_level and traverse_step at this scale against their plain
+    versions, timed beside their bounds with the tables in HBM; (e) the
+    distance index: the native build, the device build identical to it,
+    and the probe. Returns (the phase's facts, the records of trie_level,
+    traverse_step and dindex_probe at this scale, the launches of every
+    kernel in (a))."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.dindex import DistanceIndex
+    from psi_tpu_torch.io import load_graph
+    from psi_tpu_torch.records import Records
+    from psi_tpu_torch.tools import chr_scale as cr
+
+    tag = "chr-scale"
+    t_phase = time.monotonic()
+    facts, records = {}, {}
+
+    # the configuration's graph as GFA and its reads as FASTQ
+    t0 = time.monotonic()
+    graph = cr.make_graph(ref_mbp)
+    graph_s = time.monotonic() - t0
+    gfa = os.path.join(tmp, "chr.gfa")
+    t0 = time.monotonic()
+    cr.write_gfa(graph, gfa)
+    gfa_s = time.monotonic() - t0
+    n_reads = CHR_CHUNKS * cr.CHUNK
+    t0 = time.monotonic()
+    text = cr.label_text(graph)
+    fastq = os.path.join(tmp, "chr.fastq")
+    cr.write_fastq(cr.draw_reads(text, n_reads,
+                                 np.random.RandomState(cr.READS_SEED)), fastq)
+    reads_s = time.monotonic() - t0
+    facts["data"] = {"ref_mbp": ref_mbp, "graph_s": graph_s, "gfa_s": gfa_s,
+                     "gfa_bytes": os.path.getsize(gfa), "reads": n_reads,
+                     "reads_s": reads_s}
+    phase(tag, f"{ref_mbp} Mbp, {cr.N_COMPONENTS} components: "
+          f"{graph.node_count} nodes in {graph_s:.1f} s; GFA "
+          f"{os.path.getsize(gfa)} bytes in {gfa_s:.1f} s; {n_reads} reads "
+          f"of {cr.READ_LEN} bp in {reads_s:.1f} s")
+    del graph
+
+    # (a) psikt on the card, the index built and saved once
+    prefix = os.path.join(tmp, "chr_pidx")
+    flags = (*cr.CLI_FLAGS, "-I", prefix)
+    reset_counters()
+    hits, rep, wall = run_cli(gfa, fastq, tmp, "cuda", cr.CHUNK, tag="_chr",
+                              flags=flags)
+    launches = read_counters()
+    n = rep["pindexsize"]
+    levels = cr.SEED_LEN - min(11, cr.SEED_LEN, (n.bit_length() - 1) // 2)
+    route = rep["offpath"]
+    chunks = len(rep["chunks"])
+    steps = launches["traverse_step"]
+    require(chunks == CHR_CHUNKS, f"the chr-scale run made {chunks} chunks")
+    require(launches == {**ZERO_COUNTS, "trie_level": chunks * levels,
+                         "traverse_step": steps}
+            and (steps == 0 if route["route"] == "walktree" else
+                 steps >= chunks * cr.SEED_LEN and steps % cr.SEED_LEN == 0),
+            f"the chr-scale CLI run launched {launches}, expected "
+            f"{chunks * levels} trie_level and, on the {route['route']} "
+            f"route, {'no' if route['route'] == 'walktree' else 'k an attempt'}"
+            f" traverse_step")
+    b = rep["build"]
+    phase(tag, f"(a) psikt {' '.join(cr.CLI_FLAGS)} -c {cr.CHUNK} -I: host "
+          f"build stages, GFA parse {b['graph_load_s']:.1f} s, path pick "
+          f"{b['pick_paths_s']:.1f}, paths and SA {b['index_paths_s']:.1f}, "
+          f"loci {b['loci_s']:.1f}, distance index {b['dindex_s']:.1f}, "
+          f"save {b['save_s']:.1f}, ftab {b['ftab_s']:.1f}")
+    phase(tag, f"(a) index {n} chars (psi_tpu {PSI_TPU_CHR['chars']}), "
+          f"{rep['totalnodes']} nodes ({PSI_TPU_CHR['nodes']}), "
+          f"{rep['locino']} loci ({PSI_TPU_CHR['loci']}); off-path route "
+          f"{route['route']} (WalkTree nodes: {route['walktree_nodes']}); "
+          f"launches {launches} ({levels} trie_level a chunk)")
+    res = summarize(rep, "chr-scale", wall)
+    facts["cli"] = {**{k: v for k, v in res.items()}, "wall_s": wall,
+                    "build": b, "offpath": route, "chars": n,
+                    "nodes": rep["totalnodes"], "loci": rep["locino"],
+                    "hits": len(hits), "launches": launches,
+                    "levels": levels}
+    require(res["hits_on"] > 0, "the chr-scale run found no on-path hits")
+
+    # (b) cuda = cpu on the first reads, the index loaded
+    small = head_fastq(fastq, os.path.join(tmp, "chr_small.fastq"),
+                       CHR_CPU_READS)
+    want = hits[hits[:, 2] < CHR_CPU_READS]
+    facts["cpu"] = {"reads": CHR_CPU_READS, "hits": len(want)}
+    for name, knob in (("walktree", "1"), ("traverse_device", "0")):
+        with env("PSI_TRAV_CACHE", knob):
+            got, rep_c, wall_c = run_cli(gfa, small, tmp, "cpu", cr.CHUNK,
+                                         tag=f"_chr_{name}", flags=flags)
+        require(got.tobytes() == want.tobytes(),
+                f"chr-scale, first {CHR_CPU_READS} reads, {name}: cpu "
+                f"{len(got)} vs cuda {len(want)} hits")
+        facts["cpu"][name] = {"wall_s": wall_c, "build": rep_c["build"],
+                              "offpath": rep_c["offpath"]}
+        phase(tag, f"(b) --device cpu on the first {CHR_CPU_READS} reads "
+              f"(index loaded in {rep_c['build']['load_s']:.1f} s), "
+              f"PSI_TRAV_CACHE={knob} ({rep_c['offpath']['route']}): "
+              f"lexsorted hits identical to cuda's ({len(got)}); wall "
+              f"{wall_c:.1f} s")
+
+    # (c) psi_tpu's stages, through chr_scale.run on the loaded index
+    lg = load_graph(gfa)
+    finder = cr.make_finder(lg)
+    t0 = time.monotonic()
+    require(finder.load_path_index(prefix, cr.CONTEXT, cr.STEP_SIZE,
+                                   cr.DMIN, cr.DMAX),
+            "the chr-scale path index did not load")
+    load_s = time.monotonic() - t0
+    run = cr.run(graph=lg, finder=finder,
+                 log=lambda msg: phase(tag, f"(c) {msg}"))
+    require(run["on_path_cold"]["hits"] > 0 and run["chars"] == n,
+            "chr_scale.run found no on-path hits")
+    facts["run"] = {**run, "load_s": load_s}
+
+    # (d) the path's kernels at this scale, on chunk 1
+    seqs = cr.draw_reads(cr.label_text(lg), cr.CHUNK,
+                         np.random.RandomState(cr.READS_SEED))
+    index = finder.index_reads(finder.get_seeds(
+        Records([f"r{i}" for i in range(len(seqs))], seqs)))
+    records["trie_level"] = chr_trie_record(finder, index, tag)
+    records["traverse_step"], _ = traversal_record(finder, index,
+                                                   cr.SEED_LEN, tag)
+    ts = records["traverse_step"]
+    phase(tag, f"(d) traverse_step: {cr.SEED_LEN} launches an attempt when "
+          f"the device traversal is the route; {steps} in (a) on the "
+          f"{route['route']} route")
+
+    # (e) the distance index at (DMIN, DMAX): the native build again, in
+    # memory (the artifact that (a) saved narrows its columns to int32)
+    del index
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    nat = DistanceIndex.build(lg, cr.DMIN, cr.DMAX)
+    native_s = time.monotonic() - t0
+    for name in ("src_indptr", "dst", "iv_lo", "iv_hi"):
+        require(np.array_equal(getattr(nat, name),
+                               getattr(finder.dindex, name)),
+                f"the native distance index's {name} differs from the "
+                f"one (a) saved")
+    facts["dindex"] = {"native": {"intervals": len(nat.dst),
+                                  "build_s": native_s,
+                                  "cli_build_s": b["dindex_s"]}}
+    phase(tag, f"(e) native build ({cr.DMIN}, {cr.DMAX}): {len(nat.dst)} "
+          f"intervals in {native_s:.2f} s ({b['dindex_s']:.2f} s in (a)), "
+          f"equal to the artifact (a) saved")
+    facts["dindex"]["device"] = device_build(lg, cr.DMIN, cr.DMAX, nat, tag)
+    records["dindex_probe"] = chr_probe_record(nat, lg, tag)
+    facts["phase_s"] = time.monotonic() - t_phase
+    phase(tag, f"phase {facts['phase_s']:.1f} s; trie_level "
+          f"{1e3 * records['trie_level']['ms']:.3f} us/level, "
+          f"traverse_step {1e3 * ts['ms']:.3f} us/step, dindex_probe "
+          f"{1e3 * records['dindex_probe']['ms']:.3f} us")
+    del finder, nat
+    torch.cuda.empty_cache()
+    return facts, records, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ref-len", type=int, default=REF_LEN,
                     help="reference length of the simulated pan-genome")
     ap.add_argument("--chunk", type=int, default=CHUNK,
                     help=f"reads per chunk ({N_CHUNKS} chunks are made)")
+    ap.add_argument("--chr-mbp", type=float, default=CHR_MBP,
+                    help="reference length in Mbp of [chr-scale]'s "
+                    "4-component pan-genome")
     args = ap.parse_args(argv)
     t_start = time.monotonic()
 
@@ -2807,14 +3249,20 @@ def main(argv=None) -> int:
               f"{len(finder.get_starting_loci())} loci in "
               f"{time.monotonic() - t0:.1f} s")
         reads, seeds, index = first_chunk_index(finder, fastq, args.chunk)
+        t_phase = time.monotonic()
         records, extra = kernel_phase(finder, index)
+        phase("kernels", f"phase {time.monotonic() - t_phase:.1f} s")
+        t_phase = time.monotonic()
         (launches, route_ms, records["rank_lf_pair"], records["rank"],
          records["rank4 (backward-search positions)"]) = route_phase(
             finder, index)
+        phase("routes", f"phase {time.monotonic() - t_phase:.1f} s")
         extra["route_ms_per_chunk"] = {
             r: {"device": d, "enqueued": e} for r, (d, e) in route_ms.items()}
+        t_phase = time.monotonic()
         (records["occ_gather"], records["occ_lf_pair"],
          extra["gather"]) = gather_phase(finder, reads, index)
+        phase("gather", f"phase {time.monotonic() - t_phase:.1f} s")
         launches["occ_gather"] = extra["gather"]["blocked_launches"]
         (records["range_refine"], records["range_refine4"],
          extra["traverse_step_bacterial"], extra["offpath"]) = offpath_phase(
@@ -2971,6 +3419,9 @@ def main(argv=None) -> int:
         (records["dindex_probe"], extra["dindex"],
          launches["dindex_probe"]) = dindex_phase(tmp, gfa, fastq, args.chunk)
 
+        extra["chr_scale"], chr_records, chr_launches = chr_scale_phase(
+            tmp, args.chr_mbp)
+
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
@@ -2994,6 +3445,8 @@ def main(argv=None) -> int:
              "dindex_probe": f"alice dstats --device cuda, "
                              f"{DINDEX_GAF_PAIRS} read pairs against the "
                              f"{DINDEX_HORIZONS[0]} index"}
+    require(chr_launches["trie_level"] > 0,
+            "[chr-scale] (a) never launched trie_level")
     kernels = []
     for kname, (_, source, rows, replaces) in KERNELS.items():
         require(kname in OFF_PATH or launches[kname] > 0,
@@ -3012,7 +3465,13 @@ def main(argv=None) -> int:
             "library": LIBRARY[kname],
             "shape": rec["shape"],
             "mesh_launches": mesh_launches(extra["mesh"], kname),
+            "chr_scale_launches": chr_launches[kname],
         })
+        if kname in chr_records:
+            kernels[-1]["chr_scale"] = {k: chr_records[kname].get(k) for k in (
+                "ms", "enqueued_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "hbm_bound_ms", "sector_bound_ms", "l2_bound_ms",
+                "shape")}
         if kname == "rank":
             kernels[-1]["replay_launches"] = rec["replay_launches"]
             kernels[-1]["trie_positions"] = {

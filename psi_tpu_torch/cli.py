@@ -19,7 +19,10 @@ virtual shards of the CPU.
     python -m psi_tpu_torch.cli GRAPH -f READS -l 20 -n 2 -P -c 100000 \\
         --device cuda -o hits.bin [--report report.json]
 
-The report is psi_tpu's JSON schema plus "device" and "chunks": one
+The report is psi_tpu's JSON schema plus "device", "build" (the
+seconds of the graph's parse and of each host stage of the index's build
+or load, the ftab's included), "offpath" (the off-path route taken: the
+WalkTree with its node count, or the device traversal) and "chunks": one
 record per chunk with its read, seed and distinct-key counts, on-path
 and off-path hits and seconds, the producer's parse + seed + index
 seconds (`produce_s`), the trie plan's seconds on the prepare thread
@@ -165,9 +168,10 @@ def main(argv: Optional[list] = None) -> int:
     t0 = time.monotonic()
     log.info("Loading input graph from '%s'...", args.graph)
     graph = load_graph(args.graph)
+    graph_load_s = time.monotonic() - t0
     log.info(
         "Loaded the graph in %.3fs (%d nodes, %d edges, %d paths).",
-        time.monotonic() - t0, graph.node_count, graph.edge_count,
+        graph_load_s, graph.node_count, graph.edge_count,
         graph.get_path_count(),
     )
 
@@ -386,6 +390,8 @@ def main(argv: Optional[list] = None) -> int:
         with open(args.report) as fh:
             report = json.load(fh)
         report["device"] = str(device)
+        report["build"] = _build_times(graph_load_s)
+        report["offpath"] = _offpath_route(finder)
         report["chunks"] = chunk_records
         with open(args.report, "w") as fh:
             json.dump(report, fh, indent=2)
@@ -397,6 +403,35 @@ def _distinct(sorted_keys: np.ndarray) -> int:
     if not len(sorted_keys):
         return 0
     return int(np.count_nonzero(sorted_keys[1:] != sorted_keys[:-1])) + 1
+
+
+#: the index's host stages, by the timers that SeedFinder runs them under
+BUILD_TIMERS = {
+    "pick_paths_s": ("pick-paths",), "index_paths_s": ("index-paths",),
+    "loci_s": ("find-uncovered",), "dindex_s": ("index-distances",),
+    "save_s": ("save-pindex", "save-starts", "save-dindex"),
+    "load_s": ("load-pindex", "load-starts", "load-dindex"),
+    "ftab_s": ("build-ftab",),
+}
+
+
+def _build_times(graph_load_s: float) -> dict:
+    """Seconds of each host stage of the index's build (or load), the
+    graph's parse first."""
+    from psi_tpu_torch.stats import Timer
+
+    return {"graph_load_s": graph_load_s,
+            **{key: sum(Timer.get_duration_ts(n) for n in names)
+               for key, names in BUILD_TIMERS.items()}}
+
+
+def _offpath_route(finder) -> dict:
+    """The off-path route the run took: the WalkTree, with its node count,
+    when it was built and fit its cap, else the device traversal."""
+    cached = finder._trav_tree
+    if cached is not None and cached[1] is not False:
+        return {"route": "walktree", "walktree_nodes": int(cached[1].n_nodes)}
+    return {"route": "traverse_device", "walktree_nodes": None}
 
 
 def _write_report(args, finder, graph, found, covered_reads, n_chunks):

@@ -711,11 +711,12 @@ class SeedFinder:
             with self._prep_lock:
                 if self._ftab_np is None:
                     bits = self._ftab_bits()
-                    self._ftab_np = (
-                        fm_ops.build_ftab(self.pindex.fm, bits)
-                        if bits
-                        else False
-                    )
+                    with self.stats.timeit_ts("build-ftab"):
+                        self._ftab_np = (
+                            fm_ops.build_ftab(self.pindex.fm, bits)
+                            if bits
+                            else False
+                        )
         return self._ftab_np if self._ftab_np is not False else None
 
     def _get_map_arrays(self):

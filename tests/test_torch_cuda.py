@@ -924,3 +924,53 @@ def test_launch_on_a_second_card_while_the_first_is_current():
     for g, w in zip(got, want):
         assert g.device == one
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_chr_scale_config_kernels_match_plain(dev):
+    """The chromosome-scale configuration (tools/chr_scale) at 120 kbp on
+    the card: 4 components, k = 30, 6 patched paths with context 30, loci
+    every 10 bp. trie_level once a level over the chunk's trie and
+    traverse_step once a step over the uncovered loci of every component,
+    each bit-equal to its plain version over the whole frontier."""
+    from psi_tpu_torch.tools import chr_scale
+
+    graph = chr_scale.make_graph(0.12)
+    finder = chr_scale.make_finder(graph, dev)
+    chr_scale.build_index(finder)
+    k = chr_scale.SEED_LEN
+    seqs = chr_scale.draw_reads(chr_scale.label_text(graph), 2000,
+                                np.random.RandomState(chr_scale.READS_SEED))
+    index = finder.index_reads(finder.get_seeds(
+        Records([f"r{i}" for i in range(len(seqs))], seqs)))
+    finder.prepare_onpath(index)
+    _, _, prep = index._onpath_prep
+    arr = finder._get_stream_arrays()
+    levels = prep.parents.shape[0]
+    assert levels == k - finder._ftab_bits()
+    n0 = fm_fused.trie_level.launches
+    lo, hi = fm_fused.trie_fused(arr, prep.parents, prep.chars, prep.lo0,
+                                 prep.hi0)
+    want_lo, want_hi = prep.lo0, prep.hi0
+    for j in range(levels):
+        want_lo, want_hi = fm_fused.trie_level_plain(
+            arr.payloadC, arr.C, prep.parents[j], prep.chars[j], want_lo,
+            want_hi)
+    torch.cuda.synchronize()
+    assert fm_fused.trie_level.launches == n0 + levels
+    assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+    assert (hi > lo).any()
+
+    sn, so = finder._get_loci_np()
+    assert len(np.unique(np.searchsorted(
+        [nodes[0] for _, nodes in graph.paths], sn, "right"))) == 4
+    cap = 1 << 13
+    g = finder._get_graph_arrays()
+    seeds = trav.seeds_to_device(index, dev)
+    state, n_used = _start_state(seeds, sn, so, cap, dev), len(sn)
+    for t in range(k):
+        n0 = trav.traverse_step.launches
+        got = trav.traverse_step(g, seeds, t, state, n_used, cap)
+        assert trav.traverse_step.launches == n0 + 1
+        want = trav.traverse_step_plain(g, seeds, t, state, n_used, cap)
+        _assert_same_step(got, want)
+        state, _, n_used = want

@@ -180,14 +180,18 @@ _TOOL_IMPORT = textwrap.dedent("""
       "partition_paths_by_component"]),
     ("psi_tpu_torch.graft", ["entry", "dryrun_multichip"]),
     ("psi_tpu_torch.tools.multihost_worker", ["main"]),
+    ("psi_tpu_torch.tools.chr_scale",
+     ["main", "run", "make_graph", "make_finder", "build_index",
+      "label_text", "draw_reads", "write_gfa", "write_fastq"]),
 ])
 def test_tools_import_alone(module, names):
     """The timing helpers, the bacterial and dense cells, the sweep
     tools, the pair workload, the tool CLIs (dindexctl, alice, pindexctl,
     loci_stats, sloci, ggsim), the native baseline's binding and payload,
     the distance index's device modules, the multi-device modules
-    (parallel/), graft.py and the multi-process worker import and have
-    their functions with jax, psi_tpu and chip_smoke blocked."""
+    (parallel/), graft.py, the multi-process worker and the chr-scale
+    run import and have their functions with jax, psi_tpu and chip_smoke
+    blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -240,6 +244,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
         fm_pallas.gather_occ_rows_blocked(occ8, pos)
     np.testing.assert_array_equal(
         fm_pallas.gather_occ_rows_blocked(occ8, pos, device="cpu"), occ8[pos])
+
+
+def test_chr_scale_runs_on_the_card_by_default(monkeypatch):
+    """tools/chr_scale runs on the card unless --device cpu is given:
+    without one it raises before it builds the graph."""
+    from psi_tpu_torch.tools import chr_scale
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(chr_scale, "make_graph", None)   # never reached
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chr_scale.main(["0.01", "10"])
 
 
 def _isolated_build(monkeypatch, tmp_path, nvcc_script=None):
