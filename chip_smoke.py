@@ -2,6 +2,9 @@
 """Drive psi_tpu_torch's psikt main path once on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # the full-size run (one GPU)
+    python3 chip_smoke.py --gchar3 2.0 --gchar3-full   # tools/gchar3
+                                     # alone, its kernels timed at that
+                                     # size; no other phase, no result
 
 It imports psi_tpu_torch, torch, numpy and the standard library, and
 nothing of psi_tpu or jax. Phases, one or more lines each (any failure
@@ -197,7 +200,27 @@ exits non-zero and prints no result):
     (c) draws them, bit-equal to its plain version and the NumPy verify,
     timed in turns with torch.searchsorted, beside its bounds. Each
     kernel of the kernels line gains `chr_scale_launches`, its launches
-    in (a), and the three of (d) and (e) a `chr_scale` record.
+    in (a), and the three of (d) and (e) a `chr_scale` record;
+20. [gchar3] psi_tpu's human-pan-genome-scale configuration
+    (psi_tpu_torch/tools/gchar3.py, psi_tpu's scripts/gchar3_run.py: a
+    16-component pan-genome, a bubble every ~1 kbp, 20% insertions,
+    k = 30, one unpatched path a region, loci every 10 bp and then at
+    every bp, the distance index over (250, 450), 100,000 error-free 150
+    bp reads) at --gchar3 Gchar (GCHAR3_SMOKE), under PSI_SA_DISK=1 (the
+    disk-spilled suffix array) and a lowered
+    DistanceIndex.BIG_COL_BYTES (the artifact's side files, loaded
+    memory-mapped): (a) gchar3.run on the card, launch counters set to 0
+    just before and read just after: its stages and counts, trie_level
+    once a level in on_path and traverse_step once a step and attempt in
+    off_path (the loci put the WalkTree past its cap), nothing else,
+    each stage's seconds and peak card memory; (b) gchar3.run with
+    --device cpu over the first 2,000 reads: the same index counts and
+    lexsorted hits as the card's on those reads; (c) trie_level at the
+    chunk's frontier and traverse_step over the loci (every step, the
+    whole cap) bit-equal to their plain versions, timed beside their
+    bounds by bytes and by 32-byte sectors. Each kernel of the kernels
+    line gains `gchar3_launches`, its launches in (a), and the two of
+    (c) a `gchar3` record.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -2883,7 +2906,7 @@ def trie_level_table_work(nbpad, parents, chars, lo, hi):
             io_bytes + 32 * n_unique(words >> 2), ops)
 
 
-def chr_trie_record(finder, index, tag: str) -> dict:
+def chr_trie_record(finder, index, tag: str, step: str = "(d)") -> dict:
     """trie_level at a chunk's frontier over the chr-scale index: every
     level against its plain version, the device ms per level (CUDA
     events, a spin kernel first; payloadC, 3.4x L2, cycles through HBM
@@ -2945,7 +2968,7 @@ def chr_trie_record(finder, index, tag: str) -> dict:
            "keys": len(uniq), "payloadC_mb": nbytes(sarr.payloadC) / 1e6,
            "nonempty": int((hi > lo)[:len(uniq)].sum()),
            "shape": f"{npad} slots x {levels} levels, {sarr.n}-char index"}
-    phase(tag, f"(d) trie_level over {len(uniq)} keys ({npad} slots, "
+    phase(tag, f"{step} trie_level over {len(uniq)} keys ({npad} slots, "
           f"{levels} levels, payloadC {rec['payloadC_mb']:.1f} MB): "
           f"bit-equal to plain at every level; {1e3 * ms:.3f} us/level on "
           f"the device (enqueued {1e3 * enq:.3f}, plain "
@@ -3198,6 +3221,283 @@ def chr_scale_phase(tmp: str, ref_mbp: float):
     return facts, records, launches
 
 
+# --- phase 20: the human-pan-genome-scale run ------------------------------
+
+#: [gchar3]'s size in Gchar: 16 components of ~1 Mbp, ~0.5 M uncovered
+#: loci at psi_tpu's density (its 3.0 Gchar run has 101.4 M); the full
+#: sizes are `python3 -m psi_tpu_torch.tools.gchar3 2.0` and `3.0`
+GCHAR3_SMOKE = 0.016
+GCHAR3_CPU_READS = 2_000   # reads of the cuda = cpu check
+#: the distance index's side-file threshold in [gchar3] (bytes): its
+#: columns are ~0.1-1 MB at this size, so they go to side files and load
+#: memory-mapped, the path of columns past the 1 GiB default (which even
+#: psi_tpu's 3.0 Gchar artifact, 66.7 MB, stays under)
+GCHAR3_BIG_COL_BYTES = 1 << 16
+#: psi_tpu's recorded 3.0 Gchar run (docs/BENCH_NOTES.md, "3 Gchar
+#: measured"), printed beside the port's
+PSI_TPU_GCHAR3 = {"nodes": "9.0 M", "fm_chars": "3.00 G",
+                  "loci": "101.4 M", "dindex_intervals": "27.1 M",
+                  "distinct_keys": "500 K"}
+
+
+@contextlib.contextmanager
+def big_col_bytes(n: int):
+    """DistanceIndex.BIG_COL_BYTES set to n around the block only."""
+    from psi_tpu_torch.dindex import DistanceIndex
+
+    old = DistanceIndex.BIG_COL_BYTES
+    DistanceIndex.BIG_COL_BYTES = n
+    try:
+        yield
+    finally:
+        DistanceIndex.BIG_COL_BYTES = old
+
+
+def gchar3_phase(tmp: str, gchar: float):
+    """[gchar3]: psi_tpu's 3 Gchar configuration (tools/gchar3.py) at
+    `gchar` Gchar through the port, under PSI_SA_DISK=1 (the disk-spilled
+    suffix array) and GCHAR3_BIG_COL_BYTES (the artifact's side files).
+    (a) gchar3.run on the card, the launch counters set to 0 just before
+    and read just after: the stages and their counts, trie_level once a
+    level in on_path, traverse_step once a step and attempt in off_path,
+    nothing else; (b) gchar3.run on the cpu over the first
+    GCHAR3_CPU_READS reads: the same index and lexsorted hits; (c)
+    trie_level and traverse_step at this configuration's frontier and
+    loci bit-equal to their plain versions, timed beside their bounds by
+    bytes and by 32-byte sectors. Returns (the phase's facts, the records
+    of trie_level and traverse_step, the launches of every kernel in
+    (a))."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.tools import gchar3 as g3
+
+    tag = "gchar3"
+    t_phase = time.monotonic()
+    facts, records = {}, {}
+    keep, cpu_keep = {}, {}
+    workdir = os.path.join(tmp, "gchar3")
+    os.makedirs(workdir)
+    with env("PSI_SA_DISK", "1"), big_col_bytes(GCHAR3_BIG_COL_BYTES):
+        # (a) the run on the card
+        reset_counters()
+        res = g3.run(gchar, workdir=workdir, keep=keep,
+                     log=lambda msg: phase(tag, f"(a) {msg}"))
+        launches = read_counters()
+        finder, index = keep["finder"], keep["index"]
+        require(isinstance(finder.pindex.fm.sa, np.memmap),
+                "the gchar3 index was not built by the disk-spilled SA")
+        # (b) the cpu over the first reads, on the same graph
+        cpu = g3.run(gchar, GCHAR3_CPU_READS, "cpu", graph=keep["graph"],
+                     keep=cpu_keep, log=lambda msg: None)
+    require(res["device"].startswith("cuda"),
+            f"gchar3.run ran on {res['device']}")
+    stages = [k[:-2] for k in res if k.endswith("_s") and k != "total_s"]
+    require(stages == ["graph_gen", "path_index", "uncovered_loci",
+                       "dindex_artifact", "seeding", "read_index", "on_path",
+                       "off_path"], f"gchar3.run's stages: {stages}")
+    require(res["fm_chars"] < g3.QUERY_MAX_CHARS and "query_note" not in res,
+            f"the gchar3 index has {res['fm_chars']} chars")
+    require(min(res[k] for k in ("nodes", "loci", "dindex_intervals",
+                                 "distinct_keys", "on_hits", "off_hits")) > 0
+            and len(res["dindex_side_files"]) > 0,
+            f"gchar3.run: {res}")
+    route = res["off_path_route"]
+    k = g3.SEED_LEN
+    levels = k - finder._ftab_bits()   # one trie level a char past the ftab
+    name = {f"{mod}.{attr}": kname
+            for kname, ((mod, attr), *_) in KERNELS.items()}
+    on, off = ({name.get(n, n): v for n, v in res[f"{s}_launches"].items()
+                if v} for s in ("on_path", "off_path"))
+    steps = k * route.get("attempts", 0)
+    require(route["route"] == "traverse_device" and route["attempts"] >= 1,
+            f"the gchar3 off-path route is {route}, not the device "
+            f"traversal")
+    require(on == {"trie_level": levels} and off == {"traverse_step": steps}
+            and launches == {**ZERO_COUNTS, "trie_level": levels,
+                             "traverse_step": steps},
+            f"the gchar3 run launched {launches} (on_path {on}, off_path "
+            f"{off}), expected {levels} trie_level and {steps} "
+            f"traverse_step")
+    for key in ("nodes", "fm_chars", "loci", "dindex_intervals"):
+        require(cpu[key] == res[key], f"gchar3 {key}: cpu {cpu[key]} vs "
+                f"cuda {res[key]}")
+    # the CLI's hit stream: gocc of an off-path hit counts the chunk's
+    # seeds, so a chunk of other reads gives it other values
+    quad = ["node_id", "node_offset", "read_id", "read_offset"]
+    both = np.concatenate([keep["on"], keep["off"]])[quad]
+    want = seed_rows(both[both["read_id"] < GCHAR3_CPU_READS])
+    got = seed_rows(np.concatenate([cpu_keep["on"], cpu_keep["off"]])[quad])
+    require(len(want) > 0 and got.tobytes() == want.tobytes(),
+            f"gchar3, first {GCHAR3_CPU_READS} reads: cpu {len(got)} vs "
+            f"cuda {len(want)} hits")
+    facts["run"] = res
+    facts["cpu"] = {"reads": GCHAR3_CPU_READS, "hits": len(got),
+                    "stages_s": {s: cpu[s + "_s"] for s in stages},
+                    "off_path_route": cpu["off_path_route"]}
+    phase(tag, f"(a) {gchar} Gchar under PSI_SA_DISK=1: {res['nodes']} "
+          f"nodes, {res['fm_chars']} chars, {res['loci']} loci, "
+          f"{res['dindex_intervals']} intervals (side files "
+          f"{res['dindex_side_files']}), {res['distinct_keys']} distinct "
+          f"keys, {res['on_hits']} on-path and {res['off_hits']} off-path "
+          f"hits; the device traversal at cap {route.get('cap')} after "
+          f"{route.get('attempts')} attempt(s); launches {launches}; psi_tpu's "
+          f"3.0 Gchar run: {PSI_TPU_GCHAR3}")
+    phase(tag, "(a) stages " + ", ".join(
+        f"{s} {res[s + '_s']:.2f} s" + (
+            f" ({res[s + '_card_peak_mb']:.1f} MB on the card)"
+            if s + "_card_peak_mb" in res else "") for s in stages)
+        + f"; host peak {res['peak_gb']:.2f} GB")
+    phase(tag, f"(b) --device cpu on the first {GCHAR3_CPU_READS} reads: the "
+          f"same index and lexsorted hits ({len(got)}) as the card's; "
+          f"{sum(facts['cpu']['stages_s'].values()):.1f} s")
+
+    # (c) the path's kernels at this configuration
+    records["trie_level"] = chr_trie_record(finder, index, tag, "(c)")
+    records["traverse_step"], _ = traversal_record(finder, index, k, tag)
+    facts["phase_s"] = time.monotonic() - t_phase
+    phase(tag, f"phase {facts['phase_s']:.1f} s; trie_level "
+          f"{1e3 * records['trie_level']['ms']:.3f} us/level, traverse_step "
+          f"{1e3 * records['traverse_step']['ms']:.3f} us/step")
+    del finder, index, keep, cpu_keep
+    torch.cuda.empty_cache()
+    return facts, records, launches
+
+
+def stepwise_record(finder, index, k: int, tag: str) -> dict:
+    """traverse_step over the finder's loci at the route's cap, doubled
+    until the traversal fits, one step at a time with only the current
+    state kept (traversal_record keeps every step's inputs, 30 states of
+    20 bytes a slot, past the card's memory at caps of 2^27 and up): the
+    kernel against its plain version at each step's input over the whole
+    cap, its device time there by CUDA events, and the bounds by bytes
+    and by 32-byte sectors with the graph and seeds tables from HBM."""
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+
+    n = len(finder.starting_loci)
+    g = finder._get_graph_arrays()
+    seeds = trav.seeds_to_device(index, finder.device)
+    cap = max(1 << 15, 1 << (n - 1).bit_length())
+    attempts = 0
+    while True:
+        attempts += 1
+        sn_d, so_d = finder._get_loci_device(cap)
+        dev = sn_d.device
+        state = trav.TraverseState(
+            locus_idx=torch.arange(cap, dtype=torch.int32, device=dev),
+            node=sn_d, off=so_d,
+            lo=torch.zeros(cap, dtype=torch.int32, device=dev),
+            hi=torch.full((cap,), seeds.size, dtype=torch.int32, device=dev),
+            overflow=torch.zeros((), dtype=torch.bool, device=dev),
+            tstats=torch.zeros(3, dtype=torch.int64, device=dev))
+        n_used, err, steps, ms, work, tables = n, 0, [], [], [], []
+        for t in range(k):
+            args = (g, seeds, t, state, n_used, cap)
+            got = trav.traverse_step(*args)
+            want = trav.traverse_step_plain(*args)
+            (gs, *gc), (ws, *wc) = got, want
+            err = max(err, *(max_abs_err(a, b)
+                             for a, b in zip((*gs, *gc), (*ws, *wc))))
+            del got, gs, gc
+            ms.append(cuda_ms(lambda: trav.traverse_step(*args), 3))
+            new_n, n2 = int(wc[0]), int(wc[1])
+            steps.append((int(n_used), new_n, n2))
+            work.append(step_work(int(n_used), new_n, n2, cap))
+            tables.append(step_table_work(*args))
+            state, n_used = ws, n2
+            del args, want, wc
+        overflow = bool(state.overflow)
+        del state
+        torch.cuda.empty_cache()
+        require(err == 0,
+                f"traverse_step differs from its plain version by {err}")
+        if not overflow:
+            break
+        cap *= 2
+    bound_ms, bound_by, bytes_moved, ops = mean_bound(
+        [(b, o) for b, o, _ in work])
+    table_bytes = bytes_moved + sum(b for b, _ in tables) / k
+    sector_bytes = bytes_moved + sum(sb for _, sb in tables) / k
+    hbm_bound_ms, hbm_bound_by = bound(table_bytes, ops)
+    sector_bound_ms, _ = bound(sector_bytes, ops)
+    rec = {"max_abs_err": err, "ms": sum(ms) / k, "step_ms": ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": bytes_moved,
+           "ops": ops, "hbm_bound_ms": hbm_bound_ms,
+           "hbm_bound_by": hbm_bound_by, "hbm_bytes": table_bytes,
+           "sector_bound_ms": sector_bound_ms, "sector_bytes": sector_bytes,
+           "loci": n, "cap": cap, "attempts": attempts, "steps": steps,
+           "survivors": steps[-1][2],
+           "shape": f"{cap} slots x {k} steps, {n} loci"}
+    phase(tag, f"traverse_step over {n} loci at cap {cap} ({attempts} "
+          f"attempt(s), {rec['survivors']} survivors): bit-equal to plain "
+          f"at all {k} steps over the whole cap; {1e3 * rec['ms']:.3f} "
+          f"us/step on the device (step 0 {1e3 * ms[0]:.3f}, last "
+          f"{1e3 * ms[-1]:.3f}); bound {1e3 * bound_ms:.3f} us by {bound_by} "
+          f"({bytes_moved / 1e6:.2f} MB/step); with the tables from HBM "
+          f"{1e3 * hbm_bound_ms:.3f} us by {hbm_bound_by}, by their sectors "
+          f"{1e3 * sector_bound_ms:.3f} us ({sector_bytes / 1e6:.2f} MB/step)")
+    return rec
+
+
+def gchar3_full(gchar: float) -> int:
+    """The full-size runs of tools/gchar3 (PERF.md's G runs), alone:
+    gchar3.run at `gchar` Gchar on the card with the warm query, its JSON
+    written after every stage to chiprun_out/gchar3_<gchar>.json, and
+    below 2^31 chars trie_level and traverse_step at that size against
+    their plain versions, timed beside their bounds, in
+    chiprun_out/gchar3_<gchar>_kernels.json. No other phase and no
+    result line."""
+    import torch
+
+    from psi_tpu_torch.tools import gchar3 as g3
+
+    tag = "gchar3-full"
+    phase(tag, card_line())
+    lib, lib_s, host, host_s = build_all()
+    phase(tag, f"kernels built in {lib_s:.1f} s, host library {host_s:.1f} s")
+    out = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    keep = {}
+    reset_counters()
+    res = g3.run(gchar, keep=keep, warm=True,
+                 out_json=os.path.join(out, f"gchar3_{gchar}.json"),
+                 log=lambda msg: phase(tag, msg))
+    launches = read_counters()
+    phase(tag, json.dumps({k: v for k, v in res.items()
+                           if not k.endswith("_launches")}))
+    phase(tag, f"launches (cold and warm query) {launches}")
+    finder, index = keep["finder"], keep["index"]
+    del keep
+    # the off-path collect reads the loci from their Position objects
+    # (ops/traverse.traverse_columnar_from_states), once a query
+    loci = finder.get_starting_loci()
+    t0 = time.monotonic()
+    np_loci = ([p.node_id() for p in loci], [p.offset() for p in loci])
+    loci_s = time.monotonic() - t0
+    del np_loci
+    phase(tag, f"the loci's node ids and offsets read from their {len(loci)} "
+          f"Position objects, as the off-path collect reads them: "
+          f"{loci_s:.3f} s")
+    facts = {"card": card_line(), "launches": launches,
+             "loci_read_s": loci_s}
+    if "query_note" in res:
+        with open(os.path.join(out, f"gchar3_{gchar}_kernels.json"),
+                  "w") as fh:
+            json.dump(facts, fh, indent=1)
+        return 0
+    records = {"trie_level": chr_trie_record(finder, index, tag, "")}
+    # the on-path tables leave the card before the traversal at full cap
+    finder._stream_arrays = finder._sa = finder._map_arrays = None
+    torch.cuda.empty_cache()
+    records["traverse_step"] = stepwise_record(finder, index, g3.SEED_LEN,
+                                               tag)
+    with open(os.path.join(out, f"gchar3_{gchar}_kernels.json"), "w") as fh:
+        json.dump({**facts, "records": records}, fh, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ref-len", type=int, default=REF_LEN,
@@ -3207,6 +3507,12 @@ def main(argv=None) -> int:
     ap.add_argument("--chr-mbp", type=float, default=CHR_MBP,
                     help="reference length in Mbp of [chr-scale]'s "
                     "4-component pan-genome")
+    ap.add_argument("--gchar3", type=float, default=GCHAR3_SMOKE,
+                    help="size in Gchar of [gchar3]'s 16-component "
+                    "pan-genome")
+    ap.add_argument("--gchar3-full", action="store_true",
+                    help="run tools/gchar3 alone at --gchar3 Gchar with its "
+                    "kernels timed (the full-size runs), no other phase")
     args = ap.parse_args(argv)
     t_start = time.monotonic()
 
@@ -3221,6 +3527,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, REPO)
 
+    if args.gchar3_full:
+        return gchar3_full(args.gchar3)
     card = card_line()
     phase("card", card)
     name = torch.cuda.get_device_name(0)
@@ -3422,6 +3730,9 @@ def main(argv=None) -> int:
         extra["chr_scale"], chr_records, chr_launches = chr_scale_phase(
             tmp, args.chr_mbp)
 
+        extra["gchar3"], g3_records, g3_launches = gchar3_phase(
+            tmp, args.gchar3)
+
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
@@ -3466,12 +3777,14 @@ def main(argv=None) -> int:
             "shape": rec["shape"],
             "mesh_launches": mesh_launches(extra["mesh"], kname),
             "chr_scale_launches": chr_launches[kname],
+            "gchar3_launches": g3_launches[kname],
         })
-        if kname in chr_records:
-            kernels[-1]["chr_scale"] = {k: chr_records[kname].get(k) for k in (
-                "ms", "enqueued_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "hbm_bound_ms", "sector_bound_ms", "l2_bound_ms",
-                "shape")}
+        for cell, recs in (("chr_scale", chr_records), ("gchar3", g3_records)):
+            if kname in recs:
+                kernels[-1][cell] = {k: recs[kname].get(k) for k in (
+                    "ms", "enqueued_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "hbm_bound_ms", "sector_bound_ms",
+                    "l2_bound_ms", "shape")}
         if kname == "rank":
             kernels[-1]["replay_launches"] = rec["replay_launches"]
             kernels[-1]["trie_positions"] = {

@@ -22,7 +22,8 @@ virtual shards of the CPU.
 The report is psi_tpu's JSON schema plus "device", "build" (the
 seconds of the graph's parse and of each host stage of the index's build
 or load, the ftab's included), "offpath" (the off-path route taken: the
-WalkTree with its node count, or the device traversal) and "chunks": one
+WalkTree with its node count, or the device traversal with its last
+chunk's final cap and attempts) and "chunks": one
 record per chunk with its read, seed and distinct-key counts, on-path
 and off-path hits and seconds, the producer's parse + seed + index
 seconds (`produce_s`), the trie plan's seconds on the prepare thread
@@ -391,7 +392,7 @@ def main(argv: Optional[list] = None) -> int:
             report = json.load(fh)
         report["device"] = str(device)
         report["build"] = _build_times(graph_load_s)
-        report["offpath"] = _offpath_route(finder)
+        report["offpath"] = finder.offpath_route()
         report["chunks"] = chunk_records
         with open(args.report, "w") as fh:
             json.dump(report, fh, indent=2)
@@ -423,15 +424,6 @@ def _build_times(graph_load_s: float) -> dict:
     return {"graph_load_s": graph_load_s,
             **{key: sum(Timer.get_duration_ts(n) for n in names)
                for key, names in BUILD_TIMERS.items()}}
-
-
-def _offpath_route(finder) -> dict:
-    """The off-path route the run took: the WalkTree, with its node count,
-    when it was built and fit its cap, else the device traversal."""
-    cached = finder._trav_tree
-    if cached is not None and cached[1] is not False:
-        return {"route": "walktree", "walktree_nodes": int(cached[1].n_nodes)}
-    return {"route": "traverse_device", "walktree_nodes": None}
 
 
 def _write_report(args, finder, graph, found, covered_reads, n_chunks):

@@ -78,8 +78,14 @@ class GraphArrays(NamedTuple):
 
 
 def graph_to_device(graph: Graph, device) -> GraphArrays:
+    """The graph's labels, label offsets and edges as int32 on `device`;
+    raises for a label text of 2^31 chars or more, whose offsets int32
+    cannot hold."""
     from psi_tpu_torch.ops.kmers import ACGT_CODE
 
+    if len(graph.labels) >= 1 << 31:
+        raise ValueError(f"graph of {len(graph.labels)} label chars: int32 "
+                         f"label offsets need < 2^31")
     codes = ACGT_CODE[graph.labels].astype(np.int32)
     codes[codes < 0] = 4  # N and unknowns kill states
     outdeg = np.diff(graph.out_indptr)

@@ -112,6 +112,9 @@ class SeedFinder:
         # (fingerprint, WalkTree | False, DeviceWalkTree | None)
         self._trav_tree = None
         self._loci_np = None    # (n, (node ids, offsets), {cap: on device})
+        #: the last single-device traversal's final cap and its attempts
+        #: (the cap doubles on overflow)
+        self.last_traversal = None
         self._prep_lock = threading.Lock()
 
     # === device mesh (multi-device scale-out, SURVEY §2.3) ==================
@@ -1487,6 +1490,7 @@ class SeedFinder:
         if pending[0] == "mesh":
             return self._traverse_collect_sharded(index, pending)
         _, packed_d, cap, g, sa = pending
+        attempts = 1
         while True:
             packed = packed_d.cpu().numpy()
             n_used, overflow = int(packed[3 * cap]), int(packed[3 * cap + 1])
@@ -1494,6 +1498,7 @@ class SeedFinder:
                 _, packed_d, cap, g, sa = self._traverse_dispatch(
                     index, g, sa, cap * 2
                 )
+                attempts += 1
                 continue
             if not self.seed_mismatches:
                 # only account the final (non-overflowing) run's counters
@@ -1502,6 +1507,7 @@ class SeedFinder:
                     gd, ended + n_used, ended_len + n_used * self.seed_len,
                 )
             break
+        self.last_traversal = {"cap": cap, "attempts": attempts}
         return trav.traverse_columnar_from_states(
             index, self.starting_loci,
             packed[:n_used],
@@ -1585,6 +1591,16 @@ class SeedFinder:
                     cached = (fp, tree if tree is not None else False, dtree)
                     self._trav_tree = cached
         return cached[2]
+
+    def offpath_route(self) -> dict:
+        """The off-path route of the last query: the WalkTree, with its
+        node count, when it was built and fit its cap, else the device
+        traversal, with its final cap and attempts once one has run."""
+        cached = self._trav_tree
+        if cached is not None and cached[1] is not False:
+            return {"route": "walktree", "walktree_nodes": int(cached[1].n_nodes)}
+        return {"route": "traverse_device", "walktree_nodes": None,
+                **(self.last_traversal or {})}
 
     def _get_loci_np(self):
         """Host-side starting-loci arrays (cached per loci count)."""

@@ -974,3 +974,67 @@ def test_chr_scale_config_kernels_match_plain(dev):
         want = trav.traverse_step_plain(g, seeds, t, state, n_used, cap)
         _assert_same_step(got, want)
         state, _, n_used = want
+
+
+def test_gchar3_config_kernels_match_plain(dev, monkeypatch, tmp_path):
+    """The 3 Gchar configuration (tools/gchar3) at 1 Mbp on the card,
+    under PSI_SA_DISK=1: 16 components, a bubble every ~1 kbp, k = 30,
+    one unpatched path a region, loci every 10 bp and then at every bp.
+    gchar3.run on the card gives the index counts and lexsorted hits of
+    the run on the cpu, with trie_level once a level and, on the device
+    traversal, traverse_step once a step; then trie_level over the
+    chunk's trie and traverse_step over every component's loci, each
+    bit-equal to its plain version over the whole frontier."""
+    from psi_tpu_torch.tools import gchar3
+
+    monkeypatch.setenv("PSI_SA_DISK", "1")
+    monkeypatch.setenv("PSI_TRAV_CACHE", "0")
+    keep, cpu_keep = {}, {}
+    res = gchar3.run(0.001, 2000, dev, workdir=str(tmp_path / "cuda"),
+                     keep=keep, log=lambda msg: None)
+    cpu = gchar3.run(0.001, 2000, "cpu", workdir=str(tmp_path / "cpu"),
+                     graph=keep["graph"], keep=cpu_keep, log=lambda msg: None)
+    for key in ("nodes", "fm_chars", "loci", "dindex_intervals",
+                "distinct_keys", "on_hits", "off_hits"):
+        assert res[key] == cpu[key], key
+    quad = ["node_id", "node_offset", "read_id", "read_offset"]
+    for part in ("on", "off"):
+        got, want = keep[part][quad], cpu_keep[part][quad]
+        assert np.array_equal(np.sort(got), np.sort(want)), part
+    finder, index = keep["finder"], keep["index"]
+    k = gchar3.SEED_LEN
+    levels = k - finder._ftab_bits()
+    route = res["off_path_route"]
+    assert route["route"] == "traverse_device"
+    assert res["on_path_launches"]["fm_fused.trie_level"] == levels
+    assert res["off_path_launches"]["traverse.traverse_step"] == (
+        k * route["attempts"])
+
+    finder.prepare_onpath(index)
+    _, _, prep = index._onpath_prep
+    arr = finder._get_stream_arrays()
+    lo, hi = prep.lo0, prep.hi0
+    for j in range(levels):
+        out = (torch.empty_like(lo), torch.empty_like(hi))
+        fm_fused.trie_level(arr.payloadC, arr.C, prep.parents[j],
+                            prep.chars[j], lo, hi, *out)
+        want = fm_fused.trie_level_plain(arr.payloadC, arr.C, prep.parents[j],
+                                         prep.chars[j], lo, hi)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        lo, hi = want
+    assert (hi > lo).any()
+
+    sn, so = finder._get_loci_np()
+    assert len(np.unique(np.searchsorted(
+        [nodes[0] for _, nodes in keep["graph"].paths], sn, "right"))) == 16
+    cap = 1 << (len(sn) - 1).bit_length()
+    g = finder._get_graph_arrays()
+    seeds = trav.seeds_to_device(index, dev)
+    state, n_used = _start_state(seeds, sn, so, cap, dev), len(sn)
+    for t in range(k):
+        n0 = trav.traverse_step.launches
+        got = trav.traverse_step(g, seeds, t, state, n_used, cap)
+        assert trav.traverse_step.launches == n0 + 1
+        want = trav.traverse_step_plain(g, seeds, t, state, n_used, cap)
+        _assert_same_step(got, want)
+        state, _, n_used = want

@@ -183,15 +183,18 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.chr_scale",
      ["main", "run", "make_graph", "make_finder", "build_index",
       "label_text", "draw_reads", "write_gfa", "write_fastq"]),
+    ("psi_tpu_torch.tools.gchar3",
+     ["main", "run", "make_graph", "make_finder", "build_index",
+      "draw_reads", "check_artifact", "warm_query", "launches"]),
 ])
 def test_tools_import_alone(module, names):
     """The timing helpers, the bacterial and dense cells, the sweep
     tools, the pair workload, the tool CLIs (dindexctl, alice, pindexctl,
     loci_stats, sloci, ggsim), the native baseline's binding and payload,
     the distance index's device modules, the multi-device modules
-    (parallel/), graft.py, the multi-process worker and the chr-scale
-    run import and have their functions with jax, psi_tpu and chip_smoke
-    blocked."""
+    (parallel/), graft.py, the multi-process worker, the chr-scale run
+    and the 3 Gchar run import and have their functions with jax,
+    psi_tpu and chip_smoke blocked."""
     proc = subprocess.run(
         [sys.executable, "-c", _TOOL_IMPORT, module, *names], cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -255,6 +258,19 @@ def test_chr_scale_runs_on_the_card_by_default(monkeypatch):
     monkeypatch.setattr(chr_scale, "make_graph", None)   # never reached
     with pytest.raises(RuntimeError, match="no CUDA device"):
         chr_scale.main(["0.01", "10"])
+
+
+def test_gchar3_runs_on_the_card_by_default(monkeypatch):
+    """tools/gchar3 runs on the card unless --device cpu is given:
+    without one it raises before it builds the graph."""
+    from psi_tpu_torch.tools import gchar3
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(gchar3, "make_graph", None)   # never reached
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gchar3.main(["0.001", "--n-reads", "10"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gchar3.make_finder(object())
 
 
 def _isolated_build(monkeypatch, tmp_path, nvcc_script=None):
