@@ -27,9 +27,14 @@ chunk's final cap and attempts) and "chunks": one
 record per chunk with its read, seed and distinct-key counts, on-path
 and off-path hits and seconds, the producer's parse + seed + index
 seconds (`produce_s`), the trie plan's seconds on the prepare thread
-(`prepare_s`), how long the query waited for that plan, and `t_done_s`,
+(`prepare_s`), how long the query waited for that plan, `t_done_s`,
 the time from the start of seed finding to that chunk's hits being
-written.
+written, and from the program's span store (stats.py) the chunk's
+seconds by stage (`spans`: seeding, index-reads, prepare-onpath and its
+plan-keys / plan-schedule / plan-upload, seeds-on-paths and its
+onpath-keys / onpath-trie / onpath-locate / onpath-join, seeds-off-path
+and its offpath-fetch / offpath-columns) and its `counters` (h2d-bytes
+and d2h-bytes copied, traverse-retries).
 """
 
 from __future__ import annotations
@@ -155,7 +160,7 @@ def main(argv: Optional[list] = None) -> int:
     from psi_tpu_torch.io import load_graph
     from psi_tpu_torch.io.fastq import FastxStream
     from psi_tpu_torch.records import Records
-    from psi_tpu_torch.stats import SeedFinderStats, Timer
+    from psi_tpu_torch.stats import SeedFinderStats, Timer, chunk_totals
     from psi_tpu_torch.device import resolve
     from psi_tpu_torch.seed_finder import SeedFinder
 
@@ -359,6 +364,7 @@ def main(argv: Optional[list] = None) -> int:
                 "offpath_s": timer_s("seeds-off-path") - off0,
                 "t_done_s": time.monotonic() - t_find,
             }
+            rec["spans"], rec["counters"] = chunk_totals(chunk.rec_offset)
             chunk_records.append(rec)
             log.info(
                 "Chunk %d: %d on-path + %d off-path hits; on-path %.3fs, "

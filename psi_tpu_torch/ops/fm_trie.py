@@ -20,6 +20,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from psi_tpu_torch import stats
 from psi_tpu_torch.device import resolve
 from psi_tpu_torch.ops import fm_fused, fm_stream
 from psi_tpu_torch.ops.fm_stream import StreamArrays
@@ -177,8 +178,14 @@ def prepare(
         p = (int(ftab.shape[0]).bit_length() - 1) // 2
         if not (0 < p < k):
             p = 0
-    sched = build_schedule(keys, k, frontier_level=p)
-    N = len(keys)
+    with stats.child_ts("plan-schedule"):
+        sched = build_schedule(keys, k, frontier_level=p)
+    with stats.child_ts("plan-upload"):
+        return _pad_upload(sched, ftab, p, len(keys), npad, device)
+
+
+def _pad_upload(sched: TrieSchedule, ftab, p: int, N: int, npad, device):
+    """`prepare`'s padding and upload of a schedule."""
     # power-of-two padding: bounds the shapes across chunks
     Npad = max(NPAD_MIN, npad or 0)
     while Npad < N:
@@ -203,7 +210,8 @@ def prepare(
     ).astype(np.int32)
 
     def put(a):
-        return None if a is None else torch.from_numpy(a).to(device)
+        return (None if a is None
+                else stats.upload(torch.from_numpy(a), device))
 
     prepared = PreparedTrie(
         parents=put(parents), chars=put(chars), lo0=put(lo0), hi0=put(hi0),
@@ -270,8 +278,8 @@ def trie_search(
         prepared = prepare(keys, k, ftab, device=arrays.payloadT.device)
     lo, hi = _trie_device(arrays, prepared.parents, prepared.chars,
                           prepared.lo0, prepared.hi0, fused=fused, pair=pair)
-    lo = lo.cpu().numpy()[prepared.leaf_perm]
-    hi = hi.cpu().numpy()[prepared.leaf_perm]
+    lo = stats.download(lo).numpy()[prepared.leaf_perm]
+    hi = stats.download(hi).numpy()[prepared.leaf_perm]
     return lo, hi
 
 

@@ -56,7 +56,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from psi_tpu_torch import _build
+from psi_tpu_torch import _build, stats
 from psi_tpu_torch.graph import Graph, Position
 from psi_tpu_torch.ops.fm_stream import below_mask, popcount32
 from psi_tpu_torch.records import BLOCK, SeedsIndex
@@ -276,9 +276,9 @@ def walks_match_device(tree: DeviceWalkTree, sorted_keys: np.ndarray):
     ccount0 = tree.ccount[0]
     dev = ccount0.device
     k = tree.k
-    keys = torch.from_numpy(_order_map(sorted_keys)).to(dev)
+    keys = stats.upload(torch.from_numpy(_order_map(sorted_keys)), dev)
     alive = torch.ones(tree.n_init, dtype=torch.bool, device=dev)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    tstats = torch.zeros(3, dtype=torch.int64, device=dev)
     lo_t = hi_t = None
     for t in range(k):
         attempted = (tree.ccount[t] * alive).sum()
@@ -286,11 +286,11 @@ def walks_match_device(tree: DeviceWalkTree, sorted_keys: np.ndarray):
         hi_t = torch.searchsorted(keys, tree.key_hi[t], right=True)
         alive_child = tree.okn[t] & alive[tree.parent[t]] & (lo_t < hi_t)
         dead = attempted - alive_child.sum()
-        stats = stats + torch.stack([attempted, dead, dead * (t + 1)])
+        tstats = tstats + torch.stack([attempted, dead, dead * (t + 1)])
         alive = alive_child[tree.okn_idx[t]]
     sel = tree.okn_idx[k - 1]
-    packed = torch.cat([alive.long(), lo_t[sel], hi_t[sel], stats]).cpu()
-    packed = packed.numpy()
+    packed = stats.download(
+        torch.cat([alive.long(), lo_t[sel], hi_t[sel], tstats])).numpy()
     s = len(sel)
     emit = packed[:s].astype(bool)
     gd, ended, ended_len = (int(v) for v in packed[3 * s:])
@@ -336,7 +336,8 @@ def occ_from_planes(planes: torch.Tensor) -> torch.Tensor:
 
 
 def seeds_to_device(index: SeedsIndex, device) -> SeedsArrays:
-    planes = torch.from_numpy(np.ascontiguousarray(index.planes)).to(device)
+    planes = stats.upload(
+        torch.from_numpy(np.ascontiguousarray(index.planes)), device)
     return SeedsArrays(occ=occ_from_planes(planes), planes=planes,
                        size=index.size)
 

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from psi_tpu_torch import stats as run_stats
 from psi_tpu_torch.ops import fm as fm_ops
 from psi_tpu_torch.ops import fm_trie
 from psi_tpu_torch.ops import traverse as trav
@@ -445,7 +446,8 @@ def sharded_expand_locate(
             lo_d[p], hi_d[p], int(n_leaves[p]), thr, k, cap,
         )
         pending[p] = gpos
-    rows = {p: g.cpu().numpy().astype(np.int32) for p, g in pending.items()}
+    rows = {p: run_stats.download(g).numpy().astype(np.int32)
+            for p, g in pending.items()}
     if local_only:
         # process-sharded emission: this process's shards only; the
         # caller joins/emits its key slice and the merged hit stream is
@@ -491,7 +493,7 @@ def sharded_traverse_dispatch(
         loci[0, :m] = start_nodes[c]
         loci[1, :m] = start_offs[c]
         dev = mesh.device(d)
-        sn, so = (torch.from_numpy(a).to(dev) for a in loci)
+        sn, so = (run_stats.upload(torch.from_numpy(a), dev) for a in loci)
         packed[d] = trav.traverse_device_packed(
             g_r[d], sa_r[d], sn, so, m, k, cap_local, max_mm)
     return (packed, D, per, cap_local, mesh)
@@ -510,7 +512,7 @@ def sharded_traverse_collect(pending, local_only: bool = False):
     overflow retry is a global decision (every process re-dispatches)
     and the traversal stats stay globally consistent."""
     packed, D, per, cap, mesh = pending
-    rows = {d: p.cpu().numpy() for d, p in enumerate(packed)
+    rows = {d: run_stats.download(p).numpy() for d, p in enumerate(packed)
             if p is not None}
     ctl = _gather_rows(mesh, {d: r[3 * cap:] for d, r in rows.items()},
                        np.zeros(5, np.int64))

@@ -148,6 +148,7 @@ class SeedsIndex:
 
         self.seeds = seeds
         self.k = seeds.k
+        self.rec_offset = seeds.rec_offset
         keys = seeds.keys[seeds.valid]
         ids = np.nonzero(seeds.valid)[0].astype(np.int64)
         # stable sort by key carrying ids: native LSD radix when

@@ -62,6 +62,7 @@ from psi_tpu_torch.pathset import PathIndex, get_uniq_haplotype
 from psi_tpu_torch.pathutil import Path, trim_back
 from psi_tpu_torch.records import Records, SeedSet, SeedsIndex, seeding
 from psi_tpu_torch.seed import SEED_DTYPE, Seed
+from psi_tpu_torch import stats as run_stats
 from psi_tpu_torch.stats import NoStats, ProgressEnum, SeedFinderStats
 
 
@@ -620,7 +621,7 @@ class SeedFinder:
     def get_seeds(self, reads: Records, distance: int = 0) -> SeedSet:
         """(ref: seed_finder.hpp:1099-1109; distance==0 -> non-overlapping)"""
         self.stats.get_this_thread_stats().set_progress(ProgressEnum.SEED_CHUNK)
-        with self.stats.timeit_ts("seeding"):
+        with self.stats.timeit_ts("seeding", reads.rec_offset):
             if distance == 0:
                 distance = self.seed_len
             return seeding(reads, self.seed_len, distance)
@@ -628,7 +629,7 @@ class SeedFinder:
     def index_reads(self, seeds: SeedSet) -> SeedsIndex:
         """(ref: seed_finder.hpp:1089-1097)"""
         self.stats.get_this_thread_stats().set_progress(ProgressEnum.INDEX_CHUNK)
-        with self.stats.timeit_ts("index-reads"):
+        with self.stats.timeit_ts("index-reads", seeds.rec_offset):
             return SeedsIndex(seeds)
 
     #: dense per-position occ table budget (bytes); texts whose dense
@@ -754,21 +755,25 @@ class SeedFinder:
             return
         if self.pindex.fm is None or self.pindex.fm.size == 0:
             return
-        _, _, search_keys, _ = self._onpath_search_keys(index)
-        uniq, inv = np.unique(search_keys, return_inverse=True)
-        mesh = self._get_mesh()
-        if mesh is not None:
-            from psi_tpu_torch.parallel.mesh import prepare_trie_sharded
+        with self.stats.timeit_ts("prepare-onpath", index.rec_offset):
+            with self.stats.timeit_ts("plan-keys"):
+                _, _, search_keys, _ = self._onpath_search_keys(index)
+                uniq, inv = np.unique(search_keys, return_inverse=True)
+            # fm_trie.prepare times its parts as plan-schedule and
+            # plan-upload (per shard on a mesh)
+            mesh = self._get_mesh()
+            if mesh is not None:
+                from psi_tpu_torch.parallel.mesh import prepare_trie_sharded
 
-            prepared = prepare_trie_sharded(
-                mesh, uniq, self.seed_len, self.pindex.fm.size,
-                self._get_ftab(),
-            )
-        else:
-            prepared = fm_trie.prepare(
-                uniq, self.seed_len, self._get_ftab(), device=self.device
-            )
-        index._onpath_prep = (uniq, inv, prepared)
+                prepared = prepare_trie_sharded(
+                    mesh, uniq, self.seed_len, self.pindex.fm.size,
+                    self._get_ftab(),
+                )
+            else:
+                prepared = fm_trie.prepare(
+                    uniq, self.seed_len, self._get_ftab(), device=self.device
+                )
+            index._onpath_prep = (uniq, inv, prepared)
 
     def _search_stream(self, search_keys: np.ndarray, k: int, prep=None):
         """Trie-batched backward search of search_keys (any order,
@@ -841,34 +846,37 @@ class SeedFinder:
             self._get_stream_arrays(), prepared.parents, prepared.chars,
             prepared.lo0, prepared.hi0,
         )
-        counts_pat = (hi_d - lo_d).cpu().numpy().astype(np.int64)
+        counts_pat = run_stats.download(hi_d - lo_d).numpy().astype(np.int64)
         leaf_perm = prepared.leaf_perm
         counts = counts_pat[leaf_perm][inv]
         thr32 = int(min(thr, np.iinfo(np.int32).max))
         emit = (counts > 0) & (counts <= thr32)
 
         def occurrences():
-            n_leaves = len(uniq)
-            valid = np.arange(len(counts_pat)) < n_leaves
-            w_pat = np.where(
-                valid & (counts_pat > 0) & (counts_pat <= thr32),
-                counts_pat, 0,
-            )
-            total_u = int(w_pat.sum())
-            if total_u == 0:
-                z = np.zeros(0, dtype=np.int64)
-                return np.nonzero(emit)[0], z, z, z
-            maps = self._get_map_arrays()
-            gpos_d, _ = fm_trie.expand_locate(
-                self._get_sa(),
-                maps.str_starts, maps.lengths, maps.seq_off,
-                lo_d, hi_d, n_leaves, thr32, k, cap=total_u,
-            )
-            gpos_stream = gpos_d.cpu().numpy().astype(np.int64)
-            occ_start_u = (np.cumsum(w_pat) - w_pat)[leaf_perm]
-            return self._chain_join(
-                counts, emit, inv, occ_start_u, gpos_stream
-            )
+            with self.stats.timeit_ts("onpath-locate"):
+                n_leaves = len(uniq)
+                valid = np.arange(len(counts_pat)) < n_leaves
+                w_pat = np.where(
+                    valid & (counts_pat > 0) & (counts_pat <= thr32),
+                    counts_pat, 0,
+                )
+                total_u = int(w_pat.sum())
+                if total_u == 0:
+                    z = np.zeros(0, dtype=np.int64)
+                    return np.nonzero(emit)[0], z, z, z
+                maps = self._get_map_arrays()
+                gpos_d, _ = fm_trie.expand_locate(
+                    self._get_sa(),
+                    maps.str_starts, maps.lengths, maps.seq_off,
+                    lo_d, hi_d, n_leaves, thr32, k, cap=total_u,
+                )
+                gpos_stream = run_stats.download(gpos_d).numpy().astype(
+                    np.int64)
+                occ_start_u = (np.cumsum(w_pat) - w_pat)[leaf_perm]
+            with self.stats.timeit_ts("onpath-join"):
+                return self._chain_join(
+                    counts, emit, inv, occ_start_u, gpos_stream
+                )
 
         return counts, emit, occurrences
 
@@ -901,8 +909,8 @@ class SeedFinder:
             mesh, sarr_r, prepared, with_counts=True,
         )
         local = mesh.local_positions()
-        counts2 = process_allgather(
-            np.stack([counts_d[p].cpu().numpy() for p in local]))
+        counts2 = process_allgather(np.stack(
+            [run_stats.download(counts_d[p]).numpy() for p in local]))
         D = mesh.shape["data"]
         Npad = counts2.shape[1]
         per = prepared.per
@@ -917,6 +925,17 @@ class SeedFinder:
         emit = (counts > 0) & (counts <= thr32)
 
         def occurrences():
+            with self.stats.timeit_ts("onpath-locate"):
+                located = locate()
+            if located is None:
+                z = np.zeros(0, dtype=np.int64)
+                return np.nonzero(emit)[0], z, z, z
+            with self.stats.timeit_ts("onpath-join"):
+                return self._chain_join(counts, *located)
+
+        def locate():
+            """(emit mask, inv, occ_start_u, gpos_stream) for the join,
+            or None when nothing is emitted."""
             w2 = np.zeros((D, Npad), dtype=np.int64)
             for d in range(D):
                 valid_d = np.arange(Npad) < prepared.sizes[d]
@@ -925,10 +944,8 @@ class SeedFinder:
                     counts2[d], 0,
                 )
             tot_d = w2.sum(axis=1)
-            emit_idx = np.nonzero(emit)[0]
             if not int(tot_d.sum()):
-                z = np.zeros(0, dtype=np.int64)
-                return emit_idx, z, z, z
+                return None
             cap = max(16, 1 << (int(tot_d.max()) - 1).bit_length())
             maps = self._get_map_arrays()
             sa_r = self._get_mesh_repl(mesh, "sa", self._get_sa)
@@ -969,9 +986,7 @@ class SeedFinder:
                     )
                     local_key[sl] = local_ds[d]
             emit_loc = emit if local_ds.all() else (emit & local_key[inv])
-            return self._chain_join(
-                counts, emit_loc, inv, occ_start_u, gpos_stream
-            )
+            return emit_loc, inv, occ_start_u, gpos_stream
 
         return counts, emit, occurrences
 
@@ -994,9 +1009,10 @@ class SeedFinder:
         else:
             arrays = self._get_fm_arrays()
             codes = torch.from_numpy(fm_ops.keys_to_codes(search_keys, k))
-            lo, hi = fm_ops.backward_search_codes(arrays,
-                                                  codes.to(self.device))
-            lo, hi = lo.cpu().numpy(), hi.cpu().numpy()
+            lo, hi = fm_ops.backward_search_codes(
+                arrays, run_stats.upload(codes, self.device))
+            lo = run_stats.download(lo).numpy()
+            hi = run_stats.download(hi).numpy()
         counts = (hi - lo).astype(np.int64)
         present = counts > 0
         emit = present & (counts <= thr)
@@ -1021,10 +1037,11 @@ class SeedFinder:
         if total and self._device_locate_enabled():
             d_ids, d_offs = fm_ops.locate_map_device(
                 self._get_fm_arrays(), self._get_map_arrays(),
-                torch.from_numpy(sa_idx.astype(np.int32)).to(self.device), k,
+                run_stats.upload(torch.from_numpy(sa_idx.astype(np.int32)),
+                                 self.device), k,
             )
-            node_ids = d_ids.cpu().numpy().astype(np.int64)
-            node_offs = d_offs.cpu().numpy().astype(np.int64)
+            node_ids = run_stats.download(d_ids).numpy().astype(np.int64)
+            node_offs = run_stats.download(d_offs).numpy().astype(np.int64)
         else:
             sid, q = fm.text_pos_to_string(fm.sa[sa_idx])
             gpos = pm["seq_off"][sid] + pm["lengths"][sid] - q - k
@@ -1117,14 +1134,14 @@ class SeedFinder:
         self.stats.set_progress(ProgressEnum.READY)
         tstats = self.stats.get_this_thread_stats()
         tstats.set_progress(ProgressEnum.FIND_ON_PATHS)
-        with self.stats.timeit_ts("seeds-on-paths"):
+        with self.stats.timeit_ts("seeds-on-paths", seeds.rec_offset):
             arr = self._seeds_on_paths_impl(seeds, index)
             if arr is not None:
                 _emit_rows(arr, callback)
 
     def seeds_on_paths_arrays(self, seeds, index):
         """Columnar variant: structured SEED_DTYPE array (bulk path)."""
-        with self.stats.timeit_ts("seeds-on-paths"):
+        with self.stats.timeit_ts("seeds-on-paths", seeds.rec_offset):
             return self._seeds_on_paths_impl(seeds, index)
 
     def _seeds_on_paths_impl(self, seeds, index):
@@ -1134,19 +1151,23 @@ class SeedFinder:
             return None
         if self.pindex.fm is None or self.pindex.fm.size == 0:
             return None
-        uniq_keys, uniq_start, search_keys, origin = (
-            self._onpath_search_keys(index)
-        )
-        uniq_end = np.append(uniq_start[1:], index.size)
+        with self.stats.timeit_ts("onpath-keys"):
+            uniq_keys, uniq_start, search_keys, origin = (
+                self._onpath_search_keys(index)
+            )
+            uniq_end = np.append(uniq_start[1:], index.size)
         thr = (self.gocc_threshold if self.gocc_threshold
                else np.iinfo(np.int64).max)
         if self._stream_enabled() and self._device_locate_enabled():
-            counts, emit, row_per_occ_fn = self._onpath_chain(
-                index, search_keys, thr)
-            skipped = (counts > 0) & ~emit
-            tstats.add_seed_gocc_bulk(int(counts[emit].sum()),
-                                      int(emit.sum()))
-            tstats.inc_gocc_skips(int(skipped.sum()))
+            # the trie search, its counts and what they emit (a plan
+            # missing from prepare_onpath is built here)
+            with self.stats.timeit_ts("onpath-trie"):
+                counts, emit, row_per_occ_fn = self._onpath_chain(
+                    index, search_keys, thr)
+                skipped = (counts > 0) & ~emit
+                tstats.add_seed_gocc_bulk(int(counts[emit].sum()),
+                                          int(emit.sum()))
+                tstats.inc_gocc_skips(int(skipped.sum()))
             if not emit.any():
                 return None
             join = row_per_occ_fn()
@@ -1154,10 +1175,11 @@ class SeedFinder:
                 # native fused join: cross-product + SEED_DTYPE fill in
                 # one pass
                 _, occ_start_u, gpos_stream, inv_c, emit_r = join
-                return self._emit_join_native(
-                    counts, emit_r, inv_c, origin, occ_start_u,
-                    gpos_stream, index, seeds, uniq_start, uniq_end, k,
-                )
+                with self.stats.timeit_ts("onpath-join"):
+                    return self._emit_join_native(
+                        counts, emit_r, inv_c, origin, occ_start_u,
+                        gpos_stream, index, seeds, uniq_start, uniq_end, k,
+                    )
             emit_idx, occ_rows, node_ids, node_offs = join
             row_per_occ = emit_idx[occ_rows]
         else:
@@ -1165,25 +1187,26 @@ class SeedFinder:
             if found is None:
                 return None
             counts, row_per_occ, node_ids, node_offs = found
-        ui_per_occ = origin[row_per_occ]
-        # cross product: repeat each occurrence by its k-mer's seed count
-        n_seeds_per_ui = (uniq_end - uniq_start)[ui_per_occ]
-        rep_nodes = np.repeat(node_ids, n_seeds_per_ui)
-        rep_offs = np.repeat(node_offs, n_seeds_per_ui)
-        rep_gocc = np.repeat(counts[row_per_occ], n_seeds_per_ui)
-        starts_rep = np.repeat(uniq_start[ui_per_occ], n_seeds_per_ui)
-        within = np.arange(len(rep_nodes)) - np.repeat(
-            np.cumsum(n_seeds_per_ui) - n_seeds_per_ui, n_seeds_per_ui
-        )
-        seed_sel = index.seed_ids[starts_rep + within]
-        out = np.empty(len(rep_nodes), dtype=SEED_DTYPE)
-        out["node_id"] = rep_nodes
-        out["node_offset"] = rep_offs
-        out["read_id"] = seeds.rec_offset + seeds.seedmap[seed_sel, 0]
-        out["read_offset"] = seeds.seedmap[seed_sel, 1]
-        out["match_len"] = k
-        out["gocc"] = rep_gocc
-        return out
+        with self.stats.timeit_ts("onpath-join"):
+            ui_per_occ = origin[row_per_occ]
+            # cross product: repeat each occurrence by its k-mer's seed count
+            n_seeds_per_ui = (uniq_end - uniq_start)[ui_per_occ]
+            rep_nodes = np.repeat(node_ids, n_seeds_per_ui)
+            rep_offs = np.repeat(node_offs, n_seeds_per_ui)
+            rep_gocc = np.repeat(counts[row_per_occ], n_seeds_per_ui)
+            starts_rep = np.repeat(uniq_start[ui_per_occ], n_seeds_per_ui)
+            within = np.arange(len(rep_nodes)) - np.repeat(
+                np.cumsum(n_seeds_per_ui) - n_seeds_per_ui, n_seeds_per_ui
+            )
+            seed_sel = index.seed_ids[starts_rep + within]
+            out = np.empty(len(rep_nodes), dtype=SEED_DTYPE)
+            out["node_id"] = rep_nodes
+            out["node_offset"] = rep_offs
+            out["read_id"] = seeds.rec_offset + seeds.seedmap[seed_sel, 0]
+            out["read_offset"] = seeds.seedmap[seed_sel, 1]
+            out["match_len"] = k
+            out["gocc"] = rep_gocc
+            return out
 
     # === MEM query path (library API, ref: seed_finder.hpp:1459-1479) ======
     def seeds_on_paths_seq(
@@ -1268,7 +1291,7 @@ class SeedFinder:
         if fm is None or fm.size == 0 or len(reads) == 0:
             return None
         self.stats.get_this_thread_stats().set_progress(ProgressEnum.FIND_MEMS)
-        with self.stats.timeit_ts("query-paths"):
+        with self.stats.timeit_ts("query-paths", reads.rec_offset):
             k = self.seed_len
             N = len(reads)
             lut = np.zeros(256, dtype=np.int32)
@@ -1390,7 +1413,7 @@ class SeedFinder:
         self.stats.set_progress(ProgressEnum.READY)
         tstats = self.stats.get_this_thread_stats()
         tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
-        with self.stats.timeit_ts("seeds-off-path"):
+        with self.stats.timeit_ts("seeds-off-path", seeds.rec_offset):
             if not self.starting_loci:
                 return
             if device:
@@ -1477,44 +1500,51 @@ class SeedFinder:
         if pending is None:
             return None
         if pending[0] == "tree":
-            locus_idx, lo, hi, gd, ended, ended_len = trav.walks_match_device(
-                pending[1], index.sorted_keys
-            )
+            with self.stats.timeit_ts("offpath-fetch"):
+                locus_idx, lo, hi, gd, ended, ended_len = (
+                    trav.walks_match_device(pending[1], index.sorted_keys))
             n_used = len(locus_idx)
             self.stats.get_this_thread_stats().add_traversal(
                 gd, ended + n_used, ended_len + n_used * self.seed_len,
             )
-            return trav.traverse_columnar_from_states(
-                index, self.starting_loci, locus_idx, lo, hi, self.seed_len,
-            )
+            with self.stats.timeit_ts("offpath-columns"):
+                return trav.traverse_columnar_from_states(
+                    index, self.starting_loci, locus_idx, lo, hi,
+                    self.seed_len,
+                )
         if pending[0] == "mesh":
             return self._traverse_collect_sharded(index, pending)
         _, packed_d, cap, g, sa = pending
         attempts = 1
-        while True:
-            packed = packed_d.cpu().numpy()
-            n_used, overflow = int(packed[3 * cap]), int(packed[3 * cap + 1])
-            if overflow:
-                _, packed_d, cap, g, sa = self._traverse_dispatch(
-                    index, g, sa, cap * 2
-                )
-                attempts += 1
-                continue
-            if not self.seed_mismatches:
-                # only account the final (non-overflowing) run's counters
-                gd, ended, ended_len = (int(v) for v in packed[3 * cap + 2:])
-                self.stats.get_this_thread_stats().add_traversal(
-                    gd, ended + n_used, ended_len + n_used * self.seed_len,
-                )
-            break
+        with self.stats.timeit_ts("offpath-fetch"):
+            while True:
+                packed = run_stats.download(packed_d).numpy()
+                n_used = int(packed[3 * cap])
+                if int(packed[3 * cap + 1]):    # overflow
+                    _, packed_d, cap, g, sa = self._traverse_dispatch(
+                        index, g, sa, cap * 2
+                    )
+                    attempts += 1
+                    run_stats.count("traverse-retries", 1)
+                    continue
+                if not self.seed_mismatches:
+                    # only account the final (non-overflowing) run's
+                    # counters
+                    gd, ended, ended_len = (int(v)
+                                            for v in packed[3 * cap + 2:])
+                    self.stats.get_this_thread_stats().add_traversal(
+                        gd, ended + n_used, ended_len + n_used * self.seed_len,
+                    )
+                break
         self.last_traversal = {"cap": cap, "attempts": attempts}
-        return trav.traverse_columnar_from_states(
-            index, self.starting_loci,
-            packed[:n_used],
-            packed[cap: cap + n_used],
-            packed[2 * cap: 2 * cap + n_used],
-            self.seed_len,
-        )
+        with self.stats.timeit_ts("offpath-columns"):
+            return trav.traverse_columnar_from_states(
+                index, self.starting_loci,
+                packed[:n_used],
+                packed[cap: cap + n_used],
+                packed[2 * cap: 2 * cap + n_used],
+                self.seed_len,
+            )
 
     def _traverse_collect_sharded(self, index: SeedsIndex, pending):
         """Fetch a mesh-mode _traverse_dispatch result (cap-doubling
@@ -1528,20 +1558,22 @@ class SeedFinder:
         _, handle, cap_local, g, sa, mesh = pending
         sn, so = self._get_loci_np()
         local_only = self._mh_emit_sharded()
-        while True:
-            li, lo, hi, nu, ov, ts, local_ds = sharded_traverse_collect(
-                handle, local_only=local_only
-            )
-            # overflow is gathered even in local-only mode: the
-            # cap-doubling re-dispatch is a collective decision
-            if ov.any():
-                cap_local *= 2
-                handle = sharded_traverse_dispatch(
-                    mesh, g, sa, sn, so, self.seed_len, cap_local,
-                    max_mm=self.seed_mismatches,
+        with self.stats.timeit_ts("offpath-fetch"):
+            while True:
+                li, lo, hi, nu, ov, ts, local_ds = sharded_traverse_collect(
+                    handle, local_only=local_only
                 )
-                continue
-            break
+                # overflow is gathered even in local-only mode: the
+                # cap-doubling re-dispatch is a collective decision
+                if ov.any():
+                    cap_local *= 2
+                    handle = sharded_traverse_dispatch(
+                        mesh, g, sa, sn, so, self.seed_len, cap_local,
+                        max_mm=self.seed_mismatches,
+                    )
+                    run_stats.count("traverse-retries", 1)
+                    continue
+                break
         if not self.seed_mismatches:
             n_surv = int(nu.sum())
             self.stats.get_this_thread_stats().add_traversal(
@@ -1554,9 +1586,10 @@ class SeedFinder:
         nu_emit = np.where(local_ds, nu, 0)
         keep = [np.concatenate([a[d, : nu_emit[d]] for d in range(len(a))])
                 for a in (li, lo, hi)]
-        return trav.traverse_columnar_from_states(
-            index, self.starting_loci, *keep, self.seed_len,
-        )
+        with self.stats.timeit_ts("offpath-columns"):
+            return trav.traverse_columnar_from_states(
+                index, self.starting_loci, *keep, self.seed_len,
+            )
 
     @staticmethod
     def _trav_tree_enabled() -> bool:
@@ -1623,7 +1656,8 @@ class SeedFinder:
             padded = np.zeros((2, cap), dtype=np.int32)
             padded[0, : len(sn)] = sn
             padded[1, : len(so)] = so
-            dev = tuple(torch.from_numpy(a).to(self.device) for a in padded)
+            dev = tuple(run_stats.upload(torch.from_numpy(a), self.device)
+                        for a in padded)
             self._loci_np[2][cap] = dev
         return dev
 
@@ -1643,7 +1677,7 @@ class SeedFinder:
 
     def seeds_off_paths_arrays(self, seeds: SeedSet, index: SeedsIndex):
         """Columnar off-path hits (structured SEED_DTYPE array)."""
-        with self.stats.timeit_ts("seeds-off-path"):
+        with self.stats.timeit_ts("seeds-off-path", seeds.rec_offset):
             return self._off_cols_to_arrays(
                 seeds, self._traverse_device_columns(index)
             )
@@ -1658,12 +1692,13 @@ class SeedFinder:
         host joins. `split=True` returns (on_path, off_path) arrays
         instead of the concatenation."""
         pending = None
+        chunk = seeds.rec_offset
         if self.starting_loci and index.size:
-            with self.stats.timeit_ts("seeds-off-path"):
+            with self.stats.timeit_ts("seeds-off-path", chunk):
                 pending = self._traverse_dispatch(index)
         parts = [self.seeds_on_paths_arrays(seeds, index)]
         if pending is not None:
-            with self.stats.timeit_ts("seeds-off-path"):
+            with self.stats.timeit_ts("seeds-off-path", chunk):
                 tstats = self.stats.get_this_thread_stats()
                 tstats.set_progress(ProgressEnum.FIND_OFF_PATHS)
                 parts.append(self._off_cols_to_arrays(

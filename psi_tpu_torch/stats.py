@@ -1,48 +1,103 @@
-"""Timers, counters, and progress observation.
+"""Timers, spans, counters, and progress observation.
 
 Mirrors the reference observability surface (ref: include/psi/stats.hpp:
 named cumulative process-global timers with laps, :190-375; compile-time
 no-op variant :377-447) and the SeedFinder progress/stats machinery
 (ref: include/psi/seed_finder.hpp:111-494): per-thread stats, gocc
 averages/skips, and a SIGUSR1 live progress dump.
+
+Every period of a thread-scoped timer is also kept as a Span in a
+bounded process-global store: its chunk (the first read id of the chunk
+it serves), its enclosing span, its thread, its start and end on the
+realtime clock and the thread's CPU time. Counters of the same store
+add up, per chunk, what a stage moves or retries (`count`, `upload`,
+`download`). `Timer.reset_all` empties the store.
 """
 
 from __future__ import annotations
 
+import itertools
 import signal
 import threading
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from collections import OrderedDict, defaultdict, deque
+from typing import Deque, Dict, List, NamedTuple, Optional, Tuple
+
+
+#: spans the store keeps, oldest dropped first. A chunk of the CLI's
+#: pipeline records ~20 (its producer, plan and query stages and their
+#: parts), so the store holds ~3,000 chunks: 25 minutes of 100,000-read
+#: chunks every half second.
+SPAN_CAP = 1 << 16
+#: (name, chunk) counters kept, oldest dropped first
+COUNTER_CAP = 1 << 14
+
+#: realtime ns at monotonic 0, read once: spans are timed on the
+#: monotonic clock and shifted onto the realtime clock, which
+#: torch.profiler's Chrome trace uses (its `ts` plus `baseTimeNanoseconds`)
+_EPOCH_NS = time.time_ns() - time.monotonic_ns()
+
+
+class Span(NamedTuple):
+    """One period of a thread-scoped timer."""
+
+    name: str
+    #: first read id of the chunk the work serves (`Records.rec_offset`),
+    #: inherited from the enclosing span; None outside any chunk
+    chunk: Optional[int]
+    id: int
+    #: id of the enclosing span on the same thread, or None
+    parent: Optional[int]
+    thread: int
+    start_ns: int       # realtime ns
+    end_ns: int
+    cpu_ns: int         # CPU time of the thread over the period
 
 
 class Timer:
-    """Named cumulative timer with a process-global registry."""
+    """Named cumulative timer with a process-global registry. Periods of
+    one timer nest: an inner period on the same thread folds into the
+    outer one."""
 
     _timers: Dict[str, "Timer"] = {}
     _lock = threading.Lock()
+    _spans: Deque[Span] = deque(maxlen=SPAN_CAP)
+    _counters: "OrderedDict[Tuple[str, Optional[int]], int]" = OrderedDict()
 
     def __init__(self, name: str):
         self.name = name
         self.total = 0.0
         self.count = 0
-        self._started: Optional[float] = None
+        self._depth = 0
+        self._started: Optional[int] = None    # monotonic ns
 
     def __enter__(self):
-        self._started = time.monotonic()
+        self._start(time.monotonic_ns())
         return self
 
     def __exit__(self, *exc):
-        if self._started is not None:
-            self.total += time.monotonic() - self._started
+        self._stop(time.monotonic_ns())
+        return False
+
+    def _start(self, now_ns: int):
+        if not self._depth:
+            self._started = now_ns
+        self._depth += 1
+
+    def _stop(self, now_ns: int):
+        if not self._depth:
+            return
+        self._depth -= 1
+        if not self._depth:
+            self.total += (now_ns - self._started) * 1e-9
             self.count += 1
             self._started = None
-        return False
 
     def lap(self) -> float:
         """Duration including an in-flight period (ref lap semantics)."""
-        if self._started is not None:
-            return self.total + (time.monotonic() - self._started)
+        started = self._started
+        if started is not None:
+            return self.total + (time.monotonic_ns() - started) * 1e-9
         return self.total
 
     @classmethod
@@ -54,7 +109,8 @@ class Timer:
 
     @classmethod
     def get_timers(cls) -> Dict[str, "Timer"]:
-        return dict(cls._timers)
+        with cls._lock:
+            return dict(cls._timers)
 
     @classmethod
     def get_duration(cls, name: str) -> float:
@@ -69,7 +125,7 @@ class Timer:
         seed_finder.hpp:427-456)."""
         prefix = name + "-"
         return sum(
-            t.lap() for n, t in cls._timers.items()
+            t.lap() for n, t in cls.get_timers().items()
             if n == name or n.startswith(prefix)
         )
 
@@ -77,16 +133,129 @@ class Timer:
     def reset_all(cls):
         with cls._lock:
             cls._timers.clear()
+            cls._spans.clear()
+            cls._counters.clear()
 
 
-def timeit(name: str) -> Timer:
-    return Timer.get(name)
+_local = threading.local()
+_span_ids = itertools.count()
 
 
-def timeit_ts(name: str) -> Timer:
-    """Thread-scoped timer (name suffixed with thread id, ref:
-    seed_finder.hpp:427-456)."""
-    return Timer.get(f"{name}-{threading.get_ident()}")
+def _open_spans() -> List["_Period"]:
+    """This thread's open periods, innermost last."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Period:
+    """One period of a thread-scoped timer; on exit it is also stored as
+    a Span. Its chunk, unless given, is the enclosing period's."""
+
+    __slots__ = ("timer", "name", "chunk", "id", "parent", "t0", "c0")
+
+    def __init__(self, timer: Timer, name: str, chunk: Optional[int]):
+        self.timer, self.name, self.chunk = timer, name, chunk
+
+    def __enter__(self):
+        stack = _open_spans()
+        self.parent = None
+        if stack:
+            self.parent = stack[-1].id
+            if self.chunk is None:
+                self.chunk = stack[-1].chunk
+        self.id = next(_span_ids)
+        stack.append(self)
+        self.c0 = time.thread_time_ns()
+        self.t0 = time.monotonic_ns()
+        self.timer._start(self.t0)
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.monotonic_ns()
+        c1 = time.thread_time_ns()
+        self.timer._stop(t1)
+        _open_spans().pop()
+        span = Span(self.name, self.chunk, self.id, self.parent,
+                    threading.get_ident(), self.t0 + _EPOCH_NS,
+                    t1 + _EPOCH_NS, c1 - self.c0)
+        with Timer._lock:
+            Timer._spans.append(span)
+        return False
+
+
+def timeit_ts(name: str, chunk: Optional[int] = None) -> _Period:
+    """A period of the thread-scoped timer `name` (name suffixed with
+    thread id, ref: seed_finder.hpp:427-456), stored as a span of
+    `chunk` (by default the enclosing span's)."""
+    return _Period(Timer.get(f"{name}-{threading.get_ident()}"), name, chunk)
+
+
+def child_ts(name: str):
+    """`timeit_ts(name)` when a span is open on this thread, else a
+    no-op: the stages below SeedFinder time their parts only inside a
+    timed stage (never under NoStats)."""
+    return timeit_ts(name) if _open_spans() else _NOOP_TIMER
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` to counter `name` of the chunk of this thread's innermost
+    open span; nothing when no span is open."""
+    stack = _open_spans()
+    if not stack:
+        return
+    key = (name, stack[-1].chunk)
+    with Timer._lock:
+        c = Timer._counters
+        c[key] = c.get(key, 0) + int(n)
+        if len(c) > COUNTER_CAP:
+            c.popitem(last=False)
+
+
+def upload(t, device):
+    """`t.to(device)`, counting the bytes as h2d-bytes when they leave
+    the host."""
+    out = t.to(device)
+    if t.device.type == "cpu" and out.device.type != "cpu":
+        count("h2d-bytes", t.nbytes)
+    return out
+
+
+def download(t):
+    """`t.cpu()`, counting the bytes as d2h-bytes when `t` is on a
+    device."""
+    if t.device.type != "cpu":
+        count("d2h-bytes", t.nbytes)
+    return t.cpu()
+
+
+def spans() -> List[Span]:
+    """The stored spans, oldest first."""
+    with Timer._lock:
+        return list(Timer._spans)
+
+
+def counters() -> Dict[Tuple[str, Optional[int]], int]:
+    """{(name, chunk): value} of the stored counters."""
+    with Timer._lock:
+        return dict(Timer._counters)
+
+
+def chunk_totals(chunk: int) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """({span name: seconds}, {counter name: value}) of one chunk. A span
+    inside a span of the same name is already in its time."""
+    mine = [s for s in spans() if s.chunk == chunk]
+    by_id = {s.id: s for s in mine}
+    secs: Dict[str, float] = {}
+    for s in mine:
+        p = by_id.get(s.parent)
+        while p is not None and p.name != s.name:
+            p = by_id.get(p.parent)
+        if p is None:
+            secs[s.name] = (secs.get(s.name, 0.0)
+                            + (s.end_ns - s.start_ns) * 1e-9)
+    return secs, {n: v for (n, c), v in counters().items() if c == chunk}
 
 
 class ProgressEnum:
@@ -187,10 +356,10 @@ class SeedFinderStats:
     def get_this_thread_stats(self) -> ThreadStats:
         return self._threads[threading.get_ident()]
 
-    def timeit_ts(self, name: str) -> Timer:
+    def timeit_ts(self, name: str, chunk: Optional[int] = None):
         if not self.enabled:
             return _NOOP_TIMER
-        return timeit_ts(name)
+        return timeit_ts(name, chunk)
 
     def report(self) -> str:
         lines = [f"progress: {self.progress}"]

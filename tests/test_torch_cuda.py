@@ -1038,3 +1038,48 @@ def test_gchar3_config_kernels_match_plain(dev, monkeypatch, tmp_path):
         want = trav.traverse_step_plain(g, seeds, t, state, n_used, cap)
         _assert_same_step(got, want)
         state, _, n_used = want
+
+
+@pytest.mark.parametrize("trav_cache", ["1", "0"])
+def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
+    """One chunk of the CLI's stages on the card (the WalkTree probe or
+    the device traversal off path): every stage's span tagged with the
+    chunk, and its host-device copies counted, the plan's upload and the
+    query's downloads among them."""
+    from psi_tpu_torch import stats
+    from psi_tpu_torch.stats import SeedFinderStats, Timer
+
+    monkeypatch.setenv("PSI_TRAV_CACHE", trav_cache)
+    graph = make_pangenome_graph(30_000, 0.02, seed=8)
+    itr = HaplotyperRandomIter(graph, seed=12)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    rng = np.random.RandomState(4)
+    reads = hs[rng.randint(0, len(hs) - 100, 800)[:, None] + np.arange(100)]
+    seqs = [r.tobytes().decode() for r in reads]
+    Timer.reset_all()
+    finder = SeedFinder(graph, 20, stats=SeedFinderStats(), device="cuda")
+    finder.create_path_index(1, patched=False)
+    for offset in (0, 800):
+        recs = Records([f"r{i}" for i in range(800)], seqs,
+                       rec_offset=offset)
+        seeds = finder.get_seeds(recs)
+        index = finder.index_reads(seeds)
+        finder.prepare_onpath(index)
+        on, off = finder.seeds_all_arrays(seeds, index, split=True)
+    assert len(on) and len(off)
+    secs, counts = stats.chunk_totals(800)
+    assert {"seeding", "index-reads", "prepare-onpath", "plan-keys",
+            "plan-schedule", "plan-upload", "seeds-on-paths", "onpath-keys",
+            "onpath-trie",
+            "onpath-locate", "onpath-join", "seeds-off-path",
+            "offpath-fetch", "offpath-columns"} <= set(secs)
+    plan = index._onpath_prep[2]
+    planned = sum(t.nbytes for t in (plan.parents, plan.chars, plan.lo0,
+                                     plan.hi0) if t is not None)
+    assert counts["h2d-bytes"] > planned
+    assert counts["d2h-bytes"] >= 4 * plan.parents.shape[1]
+    Timer.reset_all()
