@@ -29,7 +29,10 @@ exits non-zero and prints no result):
     also warm, as its route runs it (rank4_pair for the level just
     before, events around compact alone), with the distinct rank-table
     sectors per child and a bound from them; rank at the trie step's
-    positions too; expand + locate time;
+    positions too; the plan's builder trie_schedule on chunk 1's distinct
+    keys and the ftab, bit-equal to its plain version on the CPU and to
+    the plan the main path built, with its device, enqueued and plain
+    times, device operations a call and bound; expand + locate time;
  5. [routes] on chunk 1's distinct keys, each level route through
     `trie_search` (fused; two-pass with rank4_pair; two-pass with two
     rank4 launches) and `backward_search_sorted` from the ftab frontier,
@@ -84,7 +87,9 @@ exits non-zero and prints no result):
     same way;
  8. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
-    kernel must have run for every chunk and level, and nothing else;
+    kernel must have run for every chunk and level, trie_schedule once a
+    chunk (each plan built on the card; every later phase that plans on
+    the card counts it the same way), and nothing else;
  9. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
     only the LF-step kernel, once per chunk and LF step, and a lexsorted
     hit stream byte-identical to phase 8's;
@@ -103,10 +108,10 @@ exits non-zero and prints no result):
     through native.fm_backward_batch, the speed baseline, built with
     psi_tpu's native/Makefile flags) over chunk 1's distinct keys, warmed
     up on the first 1,024, in turns with the card's on-path trie search
-    of the same keys, five calls each (trie_search: the host plan, the
-    upload, the trie_level launches and the download; launch counters
+    of the same keys, five calls each (trie_search: the plan built on the
+    card, the trie_level launches and the download; launch counters
     set to 0 just before and read just after: one trie_level a level and
-    a call, nothing else): the leaf ranges agree in every pair (hi - lo
+    one trie_schedule a call, nothing else): the leaf ranges agree in every pair (hi - lo
     everywhere, lo where the range is not empty), with both median rates
     in kmer-queries/s, each pair's ratio and their median, the levels'
     device time by CUDA events, the compiler command line and the host
@@ -263,6 +268,7 @@ BASELINE_REPS = 5     # timed pairs (baseline, card) over chunk 1's keys
 GGSIM_READS = 100_000  # reads (pairs) of each ggsim run in [tools]
 KERNEL_REPS = 20   # launches of 2^19 threads per timed kernel
 PLAIN_REPS = 3     # the plain versions launch ~25-40 kernels per level
+SCHEDULE_REPS = 10  # trie_schedule calls per timing (~50 launches a call)
 ROUTE_REPS = 5     # whole-route runs per timing (up to ~60 launches each)
 WARM_REPS = 8      # rounds of the 9 levels for compact's warm time
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA's data sheet),
@@ -552,7 +558,7 @@ def measure(name, kernel, plain, per_run, work, err, shape,
             "bytes": bytes_moved, "ops": ops, "shape": shape}
 
 
-#: the eight kernel entry points: wrapper (module, attribute), source, the
+#: the kernel entry points: wrapper (module, attribute), source, the
 #: TPU rows of the kernel table it replaces and their file:line
 KERNELS = {
     "trie_level": (("fm_fused", "trie_level"),
@@ -599,6 +605,12 @@ KERNELS = {
                      "psi_tpu_torch/csrc/dindex_probe.cu", [],
                      ["psi_tpu/ops/dindex_probe.py:30",
                       "psi_tpu/ops/dindex_probe.py:61"]),
+    # no TPU kernel: psi_tpu builds the trie plan on the host
+    # (build_schedule, then prepare's padding and upload)
+    "trie_schedule": (("fm_trie", "trie_schedule"),
+                      "psi_tpu_torch/csrc/trie_schedule.cu", [],
+                      ["psi_tpu/ops/fm_trie.py:74",
+                       "psi_tpu/ops/fm_trie.py:707"]),
 }
 #: the PyTorch call that computes each kernel's function, or why none does
 LIBRARY = {
@@ -633,6 +645,11 @@ LIBRARY = {
                      "has no popcount operator",
     "dindex_probe": "torch.searchsorted(pk, qkey, right=True): the search "
                     "alone, without the row checks",
+    "trie_schedule": "none: change depths of neighbouring keys, then per "
+                     "level a bitmap of (char, parent slot) and its prefix "
+                     "popcount scattered into the padded plan; torch has no "
+                     "popcount operator, and a bool cumsum, a nonzero and "
+                     "scatters a level are the plain version",
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 #: entry points that no route of the port runs (backward_search_sorted
@@ -657,6 +674,91 @@ def reset_counters() -> None:
 
 def read_counters() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def trie_schedule_work(n: int, levels: int, npad: int, frontier: int,
+                       k: int) -> tuple[float, float]:
+    """(bytes, operations) of one trie_schedule call on n keys: the keys
+    read (8 B each), the frontier's ftab rows gathered (8 B a row), the
+    padded plan written (parents and chars [levels, npad] int32, lo0 and
+    hi0 [npad] where there is a frontier) and the leaf slot of each key
+    (int32); a few integer operations a key and level for the change
+    depths and the ranks."""
+    written = 2 * 4 * levels * npad + (2 * 4 * npad if frontier else 0)
+    return 8 * n + 8 * frontier + written + 4 * n, 4.0 * n * k
+
+
+def schedule_record(finder, uniq, prep) -> dict:
+    """trie_schedule at the main path's shape: chunk 1's distinct keys and
+    the finder's ftab. The card's plan, bit-equal to its plain version on
+    the CPU over the same inputs and to the plan the main path built
+    (fm_trie.prepare, every padded slot and leaf_perm); one launch
+    counted; device, enqueued and plain (on the card) ms a call, the
+    device operations a call runs, and the bound."""
+    import numpy as np
+    import torch
+
+    from psi_tpu_torch.ops import fm_trie
+
+    k = finder.seed_len
+    levels, npad = prep.parents.shape
+    p = k - levels
+    keys = torch.from_numpy(np.ascontiguousarray(uniq, dtype=np.uint64)
+                            .view(np.int64))
+    ftab = (torch.from_numpy(np.ascontiguousarray(finder._get_ftab(),
+                                                  dtype=np.int32))
+            if p else None)
+    dev = finder.device
+    keys_d = keys.to(dev)
+    ftab_d = None if ftab is None else ftab.to(dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    got = fm_trie.trie_schedule(keys_d, k, p, ftab_d, npad)
+    torch.cuda.synchronize()
+    calls = read_counters()
+    require(calls == {**ZERO_COUNTS, "trie_schedule": 1},
+            f"trie_schedule launched {calls}")
+    want = fm_trie.trie_schedule_plain(keys, k, p, ftab, npad)
+    path = (prep.parents, prep.chars, prep.lo0, prep.hi0,
+            torch.from_numpy(prep.leaf_perm))
+    err = 0
+    for name, g, w, q in zip(("parents", "chars", "lo0", "hi0", "leaf"),
+                             got, want, path):
+        if w is None:
+            require(g is None and q is None, f"trie_schedule {name}: "
+                    f"given where p is 0, or missing where p > 0")
+            continue
+        g = g.cpu()
+        e = max(max_abs_err(g, w), max_abs_err(g, q.cpu()))
+        require(e == 0 and g.dtype == torch.int32, f"trie_schedule {name} "
+                f"differs from its plain version or the main path's plan "
+                f"by {e} ({g.dtype})")
+        err = max(err, e)
+    frontier = 0 if p == 0 else len(np.unique(
+        np.asarray(uniq, dtype=np.uint64) >> np.uint64(2 * (k - p))))
+
+    def run():
+        return fm_trie.trie_schedule(keys_d, k, p, ftab_d, npad)
+
+    ms = cuda_ms(run, SCHEDULE_REPS)
+    enq = enqueue_ms(run, SCHEDULE_REPS)
+    plain_ms = cuda_ms(lambda: fm_trie.trie_schedule_plain(
+        keys_d, k, p, ftab_d, npad), PLAIN_REPS)
+    ops_a_call = device_ops(run)
+    bound_ms, bound_by, bytes_moved, ops = mean_bound(
+        [trie_schedule_work(len(uniq), levels, npad, frontier, k)])
+    shape = (f"{len(uniq)} keys, p={p}, {levels} levels x {npad} slots, "
+             f"{frontier} frontier slots")
+    phase("kernels", f"trie_schedule: {1e3 * ms:.3f} us/call on the device "
+          f"(enqueued {1e3 * enq:.3f}, plain {1e3 * plain_ms:.3f}), "
+          f"{ops_a_call} device operations a call; bound "
+          f"{1e3 * bound_ms:.3f} us by {bound_by} ({bytes_moved / 1e6:.2f} "
+          f"MB/call); bit-equal to plain and to the main path's plan over "
+          f"{shape}")
+    return {"max_abs_err": err, "ms": ms, "enqueued_ms": enq,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": bytes_moved, "ops": ops,
+            "shape": shape, "device_ops_per_call": ops_a_call}
 
 
 def kernel_phase(finder, index) -> tuple[dict, dict]:
@@ -774,6 +876,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     shape = f"{npad} slots x {levels} levels"
     records = {name: measure(name, *run, err[name.split(" ")[0]], shape)
                for name, run in runs.items()}
+    records["trie_schedule"] = schedule_record(finder, uniq, prep)
 
     # compact as its route runs it ("warm"): rank4_pair for the level just
     # before, so the rank tables it reads sit in L2, with CUDA events
@@ -1832,10 +1935,10 @@ def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     (c1,) = rep["chunks"]
     steps = got["traverse_step"]
     require(got == {**ZERO_COUNTS, "trie_level": got["trie_level"],
-                    "traverse_step": steps}
+                    "trie_schedule": 1, "traverse_step": steps}
             and got["trie_level"] > 0 and steps >= k and steps % k == 0,
-            f"the dense cell's CLI run launched {got}, expected trie_level "
-            f"and a multiple of {k} traverse_step only")
+            f"the dense cell's CLI run launched {got}, expected trie_level, "
+            f"one trie_schedule and a multiple of {k} traverse_step only")
     require(c1["hits_off"] > 0, "the dense cell's CLI found no off-path hit")
     small = head_fastq(fastq, os.path.join(tmp, "dense_small.fastq"),
                        N_MISMATCH_READS)
@@ -2410,9 +2513,10 @@ def baseline_phase(finder, index) -> dict:
         require(nonempty == int((thi > tlo).sum()) > 0,
                 f"nonempty {nonempty} != the card's {int((thi > tlo).sum())}")
     got = read_counters()
-    require(got == {**ZERO_COUNTS, "trie_level": levels * BASELINE_REPS},
+    require(got == {**ZERO_COUNTS, "trie_level": levels * BASELINE_REPS,
+                    "trie_schedule": BASELINE_REPS},
             f"the trie search launched {got}, expected {levels} trie_level "
-            f"a call")
+            f"and one trie_schedule a call")
     levels_ms = cuda_ms(lambda: fm_trie._trie_device(
         sarr, prep.parents, prep.chars, prep.lo0, prep.hi0), ROUTE_REPS)
     ratios = [h / c for h, c in zip(host_s, card_s)]
@@ -2588,9 +2692,11 @@ def _mesh_query(mf, seeds, index):
 
 
 def _per_shard(mf, index, uniq, cap_local: int) -> list:
-    """Per shard of mf's mesh: the trie plan's host ms (fm_trie.prepare of
-    its key slice), its levels' and its traversal's device ms (CUDA
-    events), replayed after the counted run."""
+    """Per shard of mf's mesh: the trie plan's wall ms (fm_trie.prepare of
+    its key slice on the shard's device: on a card the keys' copy, the
+    trie_schedule build and leaf_perm's download), its levels' and its
+    traversal's device ms (CUDA events), replayed after the counted
+    run."""
     import numpy as np
     import torch
 
@@ -2718,7 +2824,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
               f"{cap_local}, {per_loci} loci a shard)")
         for d, sh in enumerate(shards):
             phase(tag, f"(a) shard {d} on {sh['device']}: {sh['keys']} keys, "
-                  f"plan {sh['plan_ms']:.1f} ms (host), levels "
+                  f"plan {sh['plan_ms']:.1f} ms (wall), levels "
                   f"{sh['trie_ms']:.4f} ms, traversal {sh['traversal_ms']:.4f}"
                   f" ms (device), {sh['loci']} loci")
         if name == "card named twice":
@@ -2837,7 +2943,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
                                  extra=("--devices", "auto", "-I", prefix))
     auto = read_counters()
     first = hits_cuda[hits_cuda[:, 2] < chunk]
-    expect_auto = ({**ZERO_COUNTS, "trie_level": levels}
+    expect_auto = ({**ZERO_COUNTS, "trie_level": levels, "trie_schedule": 1}
                    if torch.cuda.device_count() == 1 else None)
     require(hits_auto.tobytes() == first.tobytes(),
             f"[mesh] (e) psikt --devices auto: {len(hits_auto)} hits, "
@@ -3118,7 +3224,7 @@ def chr_scale_phase(tmp: str, ref_mbp: float):
     steps = launches["traverse_step"]
     require(chunks == CHR_CHUNKS, f"the chr-scale run made {chunks} chunks")
     require(launches == {**ZERO_COUNTS, "trie_level": chunks * levels,
-                         "traverse_step": steps}
+                         "trie_schedule": chunks, "traverse_step": steps}
             and (steps == 0 if route["route"] == "walktree" else
                  steps >= chunks * cr.SEED_LEN and steps % cr.SEED_LEN == 0),
             f"the chr-scale CLI run launched {launches}, expected "
@@ -3315,10 +3421,10 @@ def gchar3_phase(tmp: str, gchar: float):
             f"traversal")
     require(on == {"trie_level": levels} and off == {"traverse_step": steps}
             and launches == {**ZERO_COUNTS, "trie_level": levels,
-                             "traverse_step": steps},
+                             "trie_schedule": 1, "traverse_step": steps},
             f"the gchar3 run launched {launches} (on_path {on}, off_path "
-            f"{off}), expected {levels} trie_level and {steps} "
-            f"traverse_step")
+            f"{off}), expected {levels} trie_level, one trie_schedule and "
+            f"{steps} traverse_step")
     for key in ("nodes", "fm_chars", "loci", "dindex_intervals"):
         require(cpu[key] == res[key], f"gchar3 {key}: cpu {cpu[key]} vs "
                 f"cuda {res[key]}")
@@ -3583,14 +3689,17 @@ def main(argv=None) -> int:
         cli_launches = read_counters()
         cuda_res = summarize(rep_cuda, "cuda", wall)
         n_chunks = len(rep_cuda["chunks"])
-        want = {**ZERO_COUNTS, "trie_level": n_chunks * extra["levels"]}
+        want = {**ZERO_COUNTS, "trie_level": n_chunks * extra["levels"],
+                "trie_schedule": n_chunks}
         require(cli_launches == want,
                 f"the CLI run launched {cli_launches}, expected {want} "
-                f"({n_chunks} chunks x {extra['levels']} levels)")
+                f"({n_chunks} chunks x {extra['levels']} levels, one plan "
+                f"a chunk)")
         require(cuda_res["hits_on"] > 0 and cuda_res["hits_off"] > 0,
                 "the CLI run found no on-path or no off-path hits")
         phase("cli-cuda", f"launches in the CLI run: {cli_launches}")
         launches["trie_level"] = cli_launches["trie_level"]
+        launches["trie_schedule"] = cli_launches["trie_schedule"]
 
         # the gather route end to end: PSI_STREAM=0, the variable psi_tpu
         # reads, set around this run only
@@ -3629,6 +3738,7 @@ def main(argv=None) -> int:
         steps = trav_launches["traverse_step"]
         require(trav_launches == {**ZERO_COUNTS,
                                   "trie_level": n_trav * extra["levels"],
+                                  "trie_schedule": n_trav,
                                   "traverse_step": steps}
                 and steps >= n_trav * SEED_LEN and steps % SEED_LEN == 0,
                 f"the PSI_TRAV_CACHE=0 CLI run launched {trav_launches}, "
@@ -3666,6 +3776,7 @@ def main(argv=None) -> int:
         steps4 = mm_launches["range_refine4"]
         require(mm_launches == {**ZERO_COUNTS,
                                 "trie_level": extra["levels"],
+                                "trie_schedule": 1,
                                 "range_refine4": steps4}
                 and steps4 >= SEED_LEN and steps4 % SEED_LEN == 0,
                 f"the --mismatches 1 CLI run launched {mm_launches}")
@@ -3734,6 +3845,8 @@ def main(argv=None) -> int:
             tmp, args.gchar3)
 
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
+             "trie_schedule": f"psikt CLI, {n_chunks} chunks (one plan a "
+                              f"chunk)",
              "rank4_pair": "trie_search(fused=False, pair=True), chunk 1",
              "compact": "trie_search(fused=False, pair=False), chunk 1",
              "rank4": "trie_search(fused=False, pair=False), chunk 1",

@@ -34,7 +34,8 @@ seconds by stage (`spans`: seeding, index-reads, prepare-onpath and its
 plan-keys / plan-schedule / plan-upload, seeds-on-paths and its
 onpath-keys / onpath-trie / onpath-locate / onpath-join, seeds-off-path
 and its offpath-fetch / offpath-columns) and its `counters` (h2d-bytes
-and d2h-bytes copied, traverse-retries).
+and d2h-bytes copied, plan-device-keys: the keys whose plan the card
+built, traverse-retries).
 """
 
 from __future__ import annotations

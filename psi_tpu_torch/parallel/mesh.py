@@ -312,8 +312,8 @@ def prepare_trie_sharded(
     """Split sorted distinct keys into contiguous per-device chunks
     (each stays sorted/pattern-orderable) and build one trie plan per
     shard this process owns with a COMMON pad width, on the shard's
-    device (`fm_trie.prepare`, which synchronizes the device before it
-    returns). Thread-safe (producer thread). Other processes' shards get
+    device (`fm_trie.prepare`, which returns once the plan is complete
+    there). Thread-safe (producer thread). Other processes' shards get
     only their leaf permutation, which the gathered results need."""
     if wire not in (None, "plain"):
         raise ValueError(f"wire {wire!r}: only the plain wire is ported "

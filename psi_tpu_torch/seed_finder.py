@@ -758,7 +758,10 @@ class SeedFinder:
         with self.stats.timeit_ts("prepare-onpath", index.rec_offset):
             with self.stats.timeit_ts("plan-keys"):
                 _, _, search_keys, _ = self._onpath_search_keys(index)
-                uniq, inv = np.unique(search_keys, return_inverse=True)
+                if self.seed_mismatches:
+                    uniq, inv = np.unique(search_keys, return_inverse=True)
+                else:   # exact seeds: already the distinct keys, sorted
+                    uniq, inv = search_keys, np.arange(len(search_keys))
             # fm_trie.prepare times its parts as plan-schedule and
             # plan-upload (per shard on a mesh)
             mesh = self._get_mesh()

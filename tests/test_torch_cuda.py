@@ -51,6 +51,124 @@ def index():
     return fm, keys, fm_ops.build_ftab(fm, 5)
 
 
+#: the trie plan's cases, for the card's schedule kernel here and its
+#: plain version in test_torch_fm_trie.py: the padding's edges (8192 and
+#: 8193 keys), one key, keys that share 19 of 20 digits, the shortest and
+#: longest keys, no ftab, and a chunk's worth of 20-mers at the cells'
+#: ftab depth
+SCHEDULE_CASES = ["one", "npad_8192", "npad_8193", "prefix_19", "k1",
+                  "k32", "no_ftab", "chunk"]
+
+
+def _random_keys(rng, n, k):
+    """n random k-digit keys, sorted and distinct (fewer where they
+    collide); at k = 32 every bit of the uint64 is random."""
+    hi = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
+    lo = rng.randint(0, 1 << 32, size=n, dtype=np.uint64)
+    keys = (hi << np.uint64(32)) | lo
+    if k < 32:
+        keys &= np.uint64((1 << (2 * k)) - 1)
+    return np.unique(keys)
+
+
+def schedule_case(name):
+    """(keys, k, p, ftab) of a SCHEDULE_CASES case. The ftab (None at p =
+    0) holds each row's index and a function of it, so a plan's lo0
+    names the frontier's rows."""
+    rng = np.random.RandomState(31)
+    keys, k, p = {
+        "one": (lambda: (np.array([0x2C5F3A91B], dtype=np.uint64), 20, 5)),
+        "npad_8192": (lambda: (_random_keys(rng, 9000, 20)[:8192], 20, 5)),
+        "npad_8193": (lambda: (_random_keys(rng, 9000, 20)[:8193], 20, 5)),
+        "prefix_19": (lambda: (np.uint64(0x3B2A19F0C4)
+                               + np.arange(4, dtype=np.uint64), 20, 5)),
+        "k1": (lambda: (np.array([0, 2, 3], dtype=np.uint64), 1, 0)),
+        "k32": (lambda: (_random_keys(rng, 3000, 32), 32, 7)),
+        "no_ftab": (lambda: (_random_keys(rng, 3000, 20), 20, 0)),
+        "chunk": (lambda: (_random_keys(rng, 480_000, 20), 20, 11)),
+    }[name]()
+    rows = np.arange(4 ** p, dtype=np.int32)
+    ftab = np.stack([rows, 3 * rows + 1], axis=1) if p else None
+    return keys, k, p, ftab
+
+
+def _same_plan(got, want):
+    """Two PreparedTries equal tensor for tensor, on the host."""
+    for a, b in ((got.parents, want.parents), (got.chars, want.chars),
+                 (got.lo0, want.lo0), (got.hi0, want.hi0)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.cpu(), b.cpu())
+    np.testing.assert_array_equal(got.leaf_perm, want.leaf_perm)
+    assert got.n == want.n
+
+
+@pytest.mark.parametrize("name", SCHEDULE_CASES)
+def test_trie_schedule_kernel_matches_plain_and_host(dev, name):
+    """csrc/trie_schedule.cu against its plain version and the native
+    host schedule, slot for slot; then `prepare` on the card (the kernel
+    on its own stream, the keys through pinned memory) against `prepare`
+    on the CPU, with the plan's tensors recorded on the caller's stream
+    and `plan-device-keys` counting every key."""
+    from psi_tpu_torch import stats
+
+    keys, k, p, ftab = schedule_case(name)
+    npad = fm_trie._npad(len(keys), None)
+    t_keys = torch.from_numpy(keys.view(np.int64))
+    t_ftab = None if ftab is None else torch.from_numpy(ftab)
+    n0 = fm_trie.trie_schedule.launches
+    got = fm_trie.trie_schedule(
+        t_keys.to(dev), k, p, None if p == 0 else t_ftab.to(dev), npad)
+    torch.cuda.synchronize()
+    assert fm_trie.trie_schedule.launches == n0 + 1
+    want = fm_trie.trie_schedule_plain(t_keys, k, p, t_ftab, npad)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.device == dev and torch.equal(a.cpu(), b)
+    host = fm_trie.prepare(keys, k, ftab, device="cpu")
+    assert torch.equal(got[0].cpu(), host.parents)
+    assert torch.equal(got[1].cpu(), host.chars)
+    np.testing.assert_array_equal(got[4].cpu().numpy(), host.leaf_perm)
+    with stats.timeit_ts("prepare-onpath", 7):
+        plan = fm_trie.prepare(keys, k, ftab, device=dev)
+    assert fm_trie.trie_schedule.launches == n0 + 2
+    _same_plan(plan, host)
+    assert stats.chunk_totals(7)[1]["plan-device-keys"] == len(keys)
+    stats.Timer.reset_all()
+
+
+def test_prepare_on_the_card_equals_host_on_a_g1k_chunk(dev, tmp_path):
+    """One generated chunk of the benchmark's g1k_common cell (its graph,
+    path index and prefix table, 100,000 reads): the plan that
+    `prepare_onpath` builds on the card equals the host route's,
+    tensor for tensor, and the card built it for every distinct key."""
+    import json
+    import pathlib
+
+    from psi_tpu_torch import stats
+    from seedbench.entries import chunk_loop
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "seedbench"
+    config = json.loads((root / "configs" / "g1k_common.json").read_text())
+    traffic = json.loads((root / "traffic" / "exact.json").read_text())
+    traffic["pool_chunks"] = 1
+    inputs = chunk_loop.Inputs(config, traffic, 2_718_281_828, str(tmp_path))
+    finder = chunk_loop.build_finder(inputs, config, traffic, dev)
+    reads = inputs.chunks[0]
+    recs = Records([f"r{i}" for i in range(len(reads))], packed=(
+        reads.reshape(-1), np.arange(len(reads) + 1) * reads.shape[1]))
+    index = finder.index_reads(finder.get_seeds(recs))
+    finder.prepare_onpath(index)
+    uniq, _, plan = index._onpath_prep
+    assert plan.parents.device == dev and len(uniq) > 400_000
+    ftab = finder._get_ftab()
+    assert ftab.shape[0] == 4 ** 11
+    _same_plan(plan, fm_trie.prepare(uniq, 20, ftab, device="cpu"))
+    assert stats.chunk_totals(0)[1]["plan-device-keys"] == len(uniq)
+    stats.Timer.reset_all()
+
+
 def test_trie_level_kernel_matches_plain(index, dev):
     fm, keys, ftab = index
     arr = fm_stream.build_stream_arrays(fm, dev)
@@ -1044,8 +1162,9 @@ def test_gchar3_config_kernels_match_plain(dev, monkeypatch, tmp_path):
 def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
     """One chunk of the CLI's stages on the card (the WalkTree probe or
     the device traversal off path): every stage's span tagged with the
-    chunk, and its host-device copies counted, the plan's upload and the
-    query's downloads among them."""
+    chunk, and its host-device copies counted, the keys' upload, the
+    leaf_perm's and the query's downloads among them; the card built the
+    plan of every key."""
     from psi_tpu_torch import stats
     from psi_tpu_torch.stats import SeedFinderStats, Timer
 
@@ -1078,8 +1197,7 @@ def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
             "onpath-locate", "onpath-join", "seeds-off-path",
             "offpath-fetch", "offpath-columns"} <= set(secs)
     plan = index._onpath_prep[2]
-    planned = sum(t.nbytes for t in (plan.parents, plan.chars, plan.lo0,
-                                     plan.hi0) if t is not None)
-    assert counts["h2d-bytes"] > planned
-    assert counts["d2h-bytes"] >= 4 * plan.parents.shape[1]
+    assert counts["plan-device-keys"] == plan.n
+    assert counts["h2d-bytes"] > 8 * plan.n
+    assert counts["d2h-bytes"] >= 4 * (plan.n + plan.parents.shape[1])
     Timer.reset_all()

@@ -23,6 +23,7 @@ from psi_tpu.ops import fm_trie as jtrie
 from psi_tpu_torch import convert
 from psi_tpu_torch.ops import fm as fm_ops
 from psi_tpu_torch.ops import fm_stream, fm_trie
+from tests.test_torch_cuda import SCHEDULE_CASES, schedule_case
 
 CPU = torch.device("cpu")
 K = 12
@@ -202,3 +203,49 @@ def test_expand_locate_matches(gocc):
         )
         assert int(got_total) == int(want_total) == total
         _eq(got, np.asarray(want)[:c])
+
+
+@pytest.mark.parametrize("name", SCHEDULE_CASES)
+def test_trie_schedule_plain_matches_host(name):
+    """The card schedule's plain version against the native host schedule
+    (`prepare`'s CPU route), `_build_schedule_np` and psi_tpu's plain-wire
+    plan, slot for slot: every level's parents and chars and its size,
+    the padding, leaf_perm, and the level-p frontier (the ftab here is
+    its row index and a function of it, so lo0 holds the frontier's
+    rows)."""
+    keys, k, p, ftab = schedule_case(name)
+    npad = fm_trie._npad(len(keys), None)
+    parents, chars, lo0, hi0, leaf = fm_trie.trie_schedule(
+        torch.from_numpy(keys.view(np.int64)), k, p,
+        None if ftab is None else torch.from_numpy(ftab), npad)
+    host = fm_trie.prepare(keys, k, ftab, device=CPU)
+    assert parents.shape == chars.shape == (k - p, npad)
+    assert torch.equal(parents, host.parents)
+    assert torch.equal(chars, host.chars)
+    _eq(leaf.long(), host.leaf_perm)
+    for a, b in ((lo0, host.lo0), (hi0, host.hi0)):
+        assert (a is None) == (b is None) == (p == 0)
+        if a is not None:
+            assert torch.equal(a, b)
+    want = jtrie.prepare(keys, k, ftab, to_device=False, wire="plain",
+                         pack=False)
+    assert want.n == len(keys)
+    for a, b in ((parents, want.parents), (chars, want.chars),
+                 (lo0, want.lo0), (hi0, want.hi0), (leaf, want.leaf_perm)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _eq(a, b)
+    ref = fm_trie._build_schedule_np(keys, k)
+    _eq(leaf, ref.leaf_perm)
+    for j in range(p, k):
+        f = ref.sizes[j]
+        _eq(parents[j - p, :f], ref.parents[j])
+        _eq(chars[j - p, :f], ref.chars[j])
+        assert (parents[j - p, f:] == parents[j - p, f - 1]).all()
+        assert (chars[j - p, f:] == chars[j - p, f - 1]).all()
+    if p:
+        kpref, order = fm_trie._frontier_at(keys, k, p)
+        f = len(kpref)
+        _eq(lo0[:f], kpref[order])
+        _eq(hi0[:f], 3 * kpref[order] + 1)
+        assert (lo0[f:] == lo0[f - 1]).all() and (hi0[f:] == hi0[f - 1]).all()

@@ -301,9 +301,9 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
-    """Every csrc/*.cu (traverse_step.cu and dindex_probe.cu too) is
-    compiled for sm_90a by its own nvcc process, then linked once; the
-    same sources do not rebuild."""
+    """Every csrc/*.cu (traverse_step.cu, dindex_probe.cu and
+    trie_schedule.cu too) is compiled for sm_90a by its own nvcc process,
+    then linked once; the same sources do not rebuild."""
     # a stand-in nvcc that logs its arguments and writes its -o target
     calls = _isolated_build(monkeypatch, tmp_path, (
         f'echo "$@" >> {tmp_path / "calls"}\n'
@@ -316,7 +316,7 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
                "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu",
-               "traverse_step.cu", "dindex_probe.cu")
+               "traverse_step.cu", "dindex_probe.cu", "trie_schedule.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
