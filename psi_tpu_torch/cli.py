@@ -35,7 +35,9 @@ plan-keys / plan-schedule / plan-upload, seeds-on-paths and its
 onpath-keys / onpath-trie / onpath-locate / onpath-join, seeds-off-path
 and its offpath-fetch / offpath-columns) and its `counters` (h2d-bytes
 and d2h-bytes copied, plan-device-keys: the keys whose plan the card
-built, traverse-retries).
+built, traverse-retries; with --mismatches plan-ball-keys, the plan's
+distinct search keys, and approx-slots, k x the state cap of each
+approximate traversal attempt: the rows range_refine4 runs over).
 """
 
 from __future__ import annotations

@@ -760,6 +760,7 @@ class SeedFinder:
                 _, _, search_keys, _ = self._onpath_search_keys(index)
                 if self.seed_mismatches:
                     uniq, inv = np.unique(search_keys, return_inverse=True)
+                    run_stats.count("plan-ball-keys", len(uniq))
                 else:   # exact seeds: already the distinct keys, sorted
                     uniq, inv = search_keys, np.arange(len(search_keys))
             # fm_trie.prepare times its parts as plan-schedule and
@@ -1495,6 +1496,9 @@ class SeedFinder:
         packed_d = trav.traverse_device_packed(
             g, sa, sn_d, so_d, n, self.seed_len, cap, self.seed_mismatches,
         )
+        if self.seed_mismatches:
+            # range_refine4 runs over the whole cap at each of the k steps
+            run_stats.count("approx-slots", self.seed_len * cap)
         return ("single", packed_d, cap, g, sa)
 
     def _traverse_collect(self, index: SeedsIndex, pending):

@@ -1158,6 +1158,32 @@ def test_gchar3_config_kernels_match_plain(dev, monkeypatch, tmp_path):
         state, _, n_used = want
 
 
+def _two_card_chunks(stats_obj, seed_mismatches):
+    """Two 800-read chunks of the CLI's stages through a finder on the
+    card: (finder, the second chunk's index, its on- and off-path hits)."""
+    graph = make_pangenome_graph(30_000, 0.02, seed=8)
+    itr = HaplotyperRandomIter(graph, seed=12)
+    hap = Path(graph)
+    while not itr.at_end():
+        hap.push_back(itr.value)
+        itr.next()
+    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
+    rng = np.random.RandomState(4)
+    reads = hs[rng.randint(0, len(hs) - 100, 800)[:, None] + np.arange(100)]
+    seqs = [r.tobytes().decode() for r in reads]
+    finder = SeedFinder(graph, 20, stats=stats_obj, device="cuda",
+                        seed_mismatches=seed_mismatches)
+    finder.create_path_index(1, patched=False)
+    for offset in (0, 800):
+        recs = Records([f"r{i}" for i in range(800)], seqs,
+                       rec_offset=offset)
+        seeds = finder.get_seeds(recs)
+        index = finder.index_reads(seeds)
+        finder.prepare_onpath(index)
+        on, off = finder.seeds_all_arrays(seeds, index, split=True)
+    return finder, index, on, off
+
+
 @pytest.mark.parametrize("trav_cache", ["1", "0"])
 def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
     """One chunk of the CLI's stages on the card (the WalkTree probe or
@@ -1169,26 +1195,9 @@ def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
     from psi_tpu_torch.stats import SeedFinderStats, Timer
 
     monkeypatch.setenv("PSI_TRAV_CACHE", trav_cache)
-    graph = make_pangenome_graph(30_000, 0.02, seed=8)
-    itr = HaplotyperRandomIter(graph, seed=12)
-    hap = Path(graph)
-    while not itr.at_end():
-        hap.push_back(itr.value)
-        itr.next()
-    hs = np.frombuffer(sequence(hap).encode(), dtype=np.uint8)
-    rng = np.random.RandomState(4)
-    reads = hs[rng.randint(0, len(hs) - 100, 800)[:, None] + np.arange(100)]
-    seqs = [r.tobytes().decode() for r in reads]
     Timer.reset_all()
-    finder = SeedFinder(graph, 20, stats=SeedFinderStats(), device="cuda")
-    finder.create_path_index(1, patched=False)
-    for offset in (0, 800):
-        recs = Records([f"r{i}" for i in range(800)], seqs,
-                       rec_offset=offset)
-        seeds = finder.get_seeds(recs)
-        index = finder.index_reads(seeds)
-        finder.prepare_onpath(index)
-        on, off = finder.seeds_all_arrays(seeds, index, split=True)
+    finder, index, on, off = _two_card_chunks(
+        SeedFinderStats(), seed_mismatches=0)
     assert len(on) and len(off)
     secs, counts = stats.chunk_totals(800)
     assert {"seeding", "index-reads", "prepare-onpath", "plan-keys",
@@ -1200,4 +1209,28 @@ def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
     assert counts["plan-device-keys"] == plan.n
     assert counts["h2d-bytes"] > 8 * plan.n
     assert counts["d2h-bytes"] >= 4 * (plan.n + plan.parents.shape[1])
+    Timer.reset_all()
+
+
+def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
+    """One chunk with seed_mismatches=1 on the card: the exact route's
+    spans time the Hamming ball and the approximate traversal, the card
+    planned every key of the ball (plan-ball-keys = plan-device-keys), and
+    approx-slots is k x the cap of every attempt of the approximate
+    traversal."""
+    from psi_tpu_torch import stats
+    from psi_tpu_torch.stats import SeedFinderStats, Timer
+
+    Timer.reset_all()
+    n0 = trav.range_refine4.launches
+    finder, index, on, off = _two_card_chunks(
+        SeedFinderStats(), seed_mismatches=1)
+    assert len(on) and len(off) and trav.range_refine4.launches > n0
+    secs, counts = stats.chunk_totals(800)
+    assert {"plan-keys", "onpath-keys", "offpath-fetch"} <= set(secs)
+    plan = index._onpath_prep[2]
+    assert counts["plan-ball-keys"] == counts["plan-device-keys"] == plan.n
+    cap, attempts = (finder.last_traversal[n] for n in ("cap", "attempts"))
+    assert counts["approx-slots"] == 20 * sum(cap >> i
+                                              for i in range(attempts))
     Timer.reset_all()

@@ -56,8 +56,13 @@ def graph_reads():
     return graph, _haplotype_reads(graph, 60, 48, 5)
 
 
-def _finder(graph, stats_obj):
-    f = SeedFinder(graph, K, stats=stats_obj, device="cpu")
+#: the counters only the mismatch route records (seed_mismatches > 0)
+BALL_COUNTERS = {"approx-slots", "plan-ball-keys"}
+
+
+def _finder(graph, stats_obj, mismatches=0):
+    f = SeedFinder(graph, K, stats=stats_obj, device="cpu",
+                   seed_mismatches=mismatches)
     f.create_path_index(1, patched=False)
     return f
 
@@ -100,6 +105,48 @@ def test_one_chunk_records_every_span_in_its_parent(graph_reads, monkeypatch,
         sum(s.end_ns - s.start_ns for s in mine
             if s.name == "seeds-on-paths") * 1e-9)
     assert set(secs) == set(PARENT)
+
+
+@pytest.mark.parametrize("route", ["exact", "mismatch", "mismatch_retry"])
+def test_mismatch_route_times_and_counts_its_ball_and_traversal(
+        graph_reads, monkeypatch, route):
+    """With seed_mismatches=1 each chunk times the Hamming ball in
+    plan-keys and onpath-keys and the approximate traversal in
+    offpath-fetch, the exact route's spans, and counts approx-slots (k x
+    the cap of every attempt, the caps doubling) and plan-ball-keys (the
+    plan's distinct search keys); with exact seeds neither counter."""
+    from psi_tpu_torch.ops.kmers import expand_hamming
+
+    graph, seqs = graph_reads
+    if route == "mismatch_retry":
+        # a first cap of the loci alone, which the ball's states overflow
+        real = SeedFinder._traverse_dispatch
+
+        def small_cap(self, index, g=None, sa=None, cap=None):
+            n = len(self.starting_loci)
+            return real(self, index, g, sa,
+                        cap or 1 << (n - 1).bit_length())
+        monkeypatch.setattr(SeedFinder, "_traverse_dispatch", small_cap)
+    mm = 0 if route == "exact" else 1
+    Timer.reset_all()
+    finder = _finder(graph, SeedFinderStats(), mm)
+    _chunk(finder, seqs, 0)
+    on, off = _chunk(finder, seqs, 700)
+    assert len(on) and len(off)
+    mine = [s for s in stats.spans() if s.chunk == 700]
+    counts = {n: v for (n, c), v in stats.counters().items() if c == 700}
+    assert {s.name for s in mine} == set(PARENT)
+    if not mm:
+        assert not set(counts) & BALL_COUNTERS
+        return
+    cap, attempts = (finder.last_traversal[n] for n in ("cap", "attempts"))
+    assert attempts > 1 if route == "mismatch_retry" else attempts >= 1
+    assert counts["approx-slots"] == K * sum(cap >> i
+                                             for i in range(attempts))
+    reads = Records([f"r{i}" for i in range(len(seqs))], seqs)
+    keys = np.unique(finder.index_reads(finder.get_seeds(reads)).sorted_keys)
+    assert counts["plan-ball-keys"] == len(np.unique(
+        expand_hamming(keys, K, 1)[0]))
 
 
 def test_traverse_retries_count_each_redispatch(graph_reads):
@@ -292,3 +339,30 @@ def test_cli_report_gives_each_chunk_its_spans_and_counters(graph_reads,
         assert c["spans"]["seeds-off-path"] == pytest.approx(c["offpath_s"])
         assert c["spans"]["prepare-onpath"] <= c["prepare_s"]
         assert isinstance(c["counters"], dict)
+
+
+def test_cli_report_gives_the_mismatch_route_its_counters(graph_reads,
+                                                          tmp_path):
+    """psikt --mismatches 1 --report: each chunk's counters hold
+    approx-slots and plan-ball-keys beside plan-device-keys."""
+    graph, seqs = graph_reads
+    gpath = tmp_path / "graph.npz"
+    graph.save(str(gpath))
+    fq = tmp_path / "reads.fastq"
+    with open(fq, "w") as fh:
+        for i, r in enumerate(seqs):
+            fh.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
+    rep = tmp_path / "rep.json"
+    assert cli.main([str(gpath), "-f", str(fq), "-l", str(K), "-n", "1", "-P",
+                     "-c", "30", "--mismatches", "1", "-o",
+                     str(tmp_path / "hits.bin"), "--report", str(rep),
+                     "--device", "cpu", "-q", "-Q"]) == 0
+    chunks = json.loads(rep.read_text())["chunks"]
+    assert len(chunks) == 2
+    for c in chunks:
+        assert {"plan-keys", "onpath-keys", "offpath-fetch"} <= set(
+            c["spans"])
+        assert {"plan-device-keys"} | BALL_COUNTERS <= set(c["counters"])
+        assert c["counters"]["approx-slots"] % K == 0
+        assert c["counters"]["approx-slots"] > 0
+        assert c["counters"]["plan-ball-keys"] > 0
