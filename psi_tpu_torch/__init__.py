@@ -25,9 +25,10 @@ find:
 
 The host layers (graph, graphiter, pathutil, pathset, fmindex, records,
 seed, stats, simulate, io, ops/kmers, tools/ggsim) are copies of
-psi_tpu's with their imports pointed here, and csrc/host/ holds copies
-of the native C++ they call. This package imports neither jax nor
-psi_tpu.
+psi_tpu's with their imports pointed here (ops/kmers' expand_hamming
+dedups only from two mismatches, where keys repeat), and csrc/host/
+holds copies of the native C++ they call. This package imports neither
+jax nor psi_tpu.
 """
 
 __version__ = "0.1.0"

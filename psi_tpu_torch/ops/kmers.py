@@ -17,6 +17,8 @@ from typing import Tuple
 
 import numpy as np
 
+from psi_tpu_torch import stats
+
 ACGT_CODE = np.full(256, -1, dtype=np.int8)
 for i, ch in enumerate("ACGT"):
     ACGT_CODE[ord(ch)] = i
@@ -85,8 +87,15 @@ def expand_hamming(keys: np.ndarray, k: int, m: int):
     """All packed k-mers within Hamming distance <= m of each input key.
 
     Returns (variant_keys uint64[V], origin_idx int64[V]) deduplicated
-    per origin. Used by the mismatch-tolerant on-path route: searching
-    every variant exactly equals allowing <= m substitutions.
+    per origin, each pair where it first appears. Used by the
+    mismatch-tolerant on-path route: searching every variant exactly
+    equals allowing <= m substitutions.
+
+    At m <= 1 no pair repeats: an origin's one-substitution keys differ
+    from each other in the position or the character and from the key,
+    so the levels come back as they are. From m = 2 keys come back (a
+    second substitution at the same position), so the (origin, key) rows
+    are sorted, and counted as ball-dedup-rows.
     """
     cur_keys = keys.astype(np.uint64)
     cur_origin = np.arange(len(keys), dtype=np.int64)
@@ -106,11 +115,13 @@ def expand_hamming(keys: np.ndarray, k: int, m: int):
                 parts_o.append(cur_origin)
         cur_keys = np.concatenate(parts_k)
         cur_origin = np.concatenate(parts_o)
-        # dedup within this level against everything seen per origin
         all_keys.append(cur_keys)
         all_origin.append(cur_origin)
     vk = np.concatenate(all_keys)
     vo = np.concatenate(all_origin)
+    if m <= 1:
+        return vk, vo
+    stats.count("ball-dedup-rows", len(vk))
     # dedup (origin, key) pairs
     combo = np.stack([vo.astype(np.uint64), vk], axis=1)
     _, idx = np.unique(combo, axis=0, return_index=True)

@@ -1215,9 +1215,9 @@ def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
 def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
     """One chunk with seed_mismatches=1 on the card: the exact route's
     spans time the Hamming ball and the approximate traversal, the card
-    planned every key of the ball (plan-ball-keys = plan-device-keys), and
-    approx-slots is k x the cap of every attempt of the approximate
-    traversal."""
+    planned every key of the ball (plan-ball-keys = plan-device-keys),
+    neither ball sorted a row (no ball-dedup-rows), and approx-slots is k
+    x the cap of every attempt of the approximate traversal."""
     from psi_tpu_torch import stats
     from psi_tpu_torch.stats import SeedFinderStats, Timer
 
@@ -1230,6 +1230,7 @@ def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
     assert {"plan-keys", "onpath-keys", "offpath-fetch"} <= set(secs)
     plan = index._onpath_prep[2]
     assert counts["plan-ball-keys"] == counts["plan-device-keys"] == plan.n
+    assert "ball-dedup-rows" not in counts
     cap, attempts = (finder.last_traversal[n] for n in ("cap", "attempts"))
     assert counts["approx-slots"] == 20 * sum(cap >> i
                                               for i in range(attempts))

@@ -6,7 +6,10 @@ backward search (psi_fm.cpp, the speed baseline) also agrees with the
 port's own searches."""
 
 import difflib
+import fcntl
+import os
 import pathlib
+import subprocess
 
 import numpy as np
 import pytest
@@ -31,6 +34,31 @@ from psi_tpu_torch.seed_finder import SeedFinder
 from psi_tpu_torch.simulate import make_pangenome_graph
 
 K = 16
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jnative_loaded():
+    """psi_tpu's native library, loaded. psi_tpu builds
+    native/libpsi_host.so at first use in every process, with no lock
+    between processes, so a test process that opens the file while
+    another one's make still writes it keeps psi_tpu's NumPy fallback.
+    Where the library did not load, build it here under a file lock into
+    a file of this process, rename that into place and load it again; a
+    build that fails fails the tests."""
+    if jnative.available():
+        return
+    (REPO / "build").mkdir(exist_ok=True)
+    with open(REPO / "build" / "psi_tpu_native.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        tmp = REPO / "build" / f"libpsi_host.{os.getpid()}.so"
+        run = subprocess.run(["make", "-C", str(REPO / "native"), "-s",
+                              f"TARGET={tmp}"],
+                             capture_output=True, text=True, timeout=600)
+        assert run.returncode == 0, run.stdout + run.stderr
+        os.replace(tmp, REPO / "native" / "libpsi_host.so")
+    jnative._tried = False
+    assert jnative.available(), "psi_tpu's native library does not load"
 
 
 def _eq(a, b):
@@ -297,9 +325,6 @@ def test_simulated_graph_matches_original():
         8000, 0.05, seed=2)
     for name in ("labels", "label_offsets", "out_indptr", "out_indices"):
         _eq(getattr(got, name), getattr(want, name))
-
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("name", sorted(

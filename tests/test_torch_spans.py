@@ -113,8 +113,10 @@ def test_mismatch_route_times_and_counts_its_ball_and_traversal(
     """With seed_mismatches=1 each chunk times the Hamming ball in
     plan-keys and onpath-keys and the approximate traversal in
     offpath-fetch, the exact route's spans, and counts approx-slots (k x
-    the cap of every attempt, the caps doubling) and plan-ball-keys (the
-    plan's distinct search keys); with exact seeds neither counter."""
+    the cap of every attempt, the caps doubling), plan-ball-keys (the
+    plan's distinct search keys) but no ball-dedup-rows (a ball of radius
+    1 repeats no key of an origin, so nothing is sorted); with exact seeds
+    none of them."""
     from psi_tpu_torch.ops.kmers import expand_hamming
 
     graph, seqs = graph_reads
@@ -147,6 +149,26 @@ def test_mismatch_route_times_and_counts_its_ball_and_traversal(
     keys = np.unique(finder.index_reads(finder.get_seeds(reads)).sorted_keys)
     assert counts["plan-ball-keys"] == len(np.unique(
         expand_hamming(keys, K, 1)[0]))
+    assert "ball-dedup-rows" not in counts
+
+
+def test_ball_dedup_rows_count_the_rows_sorted_past_radius_one():
+    """A ball of radius 2 sorts every row it builds per origin and counts
+    them in the chunk of the open span; radius 1 sorts and counts
+    nothing."""
+    from psi_tpu_torch.ops.kmers import expand_hamming
+
+    keys = np.arange(5, dtype=np.uint64) * np.uint64(977)
+    Timer.reset_all()
+    with stats.timeit_ts("seeds-on-paths", chunk=40):
+        expand_hamming(keys, K, 1)
+    with stats.timeit_ts("seeds-on-paths", chunk=80):
+        expand_hamming(keys, K, 2)
+    counts = stats.counters()
+    assert ("ball-dedup-rows", 40) not in counts
+    assert counts[("ball-dedup-rows", 80)] == len(keys) * (
+        1 + 3 * K + (3 * K) ** 2) > 0
+    Timer.reset_all()
 
 
 def test_traverse_retries_count_each_redispatch(graph_reads):
@@ -344,7 +366,8 @@ def test_cli_report_gives_each_chunk_its_spans_and_counters(graph_reads,
 def test_cli_report_gives_the_mismatch_route_its_counters(graph_reads,
                                                           tmp_path):
     """psikt --mismatches 1 --report: each chunk's counters hold
-    approx-slots and plan-ball-keys beside plan-device-keys."""
+    approx-slots and plan-ball-keys beside plan-device-keys, and no
+    ball-dedup-rows."""
     graph, seqs = graph_reads
     gpath = tmp_path / "graph.npz"
     graph.save(str(gpath))
@@ -366,3 +389,4 @@ def test_cli_report_gives_the_mismatch_route_its_counters(graph_reads,
         assert c["counters"]["approx-slots"] % K == 0
         assert c["counters"]["approx-slots"] > 0
         assert c["counters"]["plan-ball-keys"] > 0
+        assert "ball-dedup-rows" not in c["counters"]
