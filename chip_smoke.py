@@ -76,11 +76,8 @@ exits non-zero and prints no result):
     TraverserStats; traverse_step against its plain version on every
     step's inputs of that run, over the whole cap, with the kernel's
     device time per step beside its bound, and the fused and plain
-    traversals' wall, busy, enqueued and peak-memory figures;
-    range_refine, which no route launches now, against its plain version
-    on the rank inputs of every step of the plain traversal, with device,
-    enqueued and plain times, its bound, and the device operations of one
-    plain step; the time of each off-path form (host probe, device probe,
+    traversals' wall, busy, enqueued and peak-memory figures; the time
+    of each off-path form (host probe, device probe,
     device traversal); then `traverse_device_approx` (m = 1, cap doubled
     until it fits) on the card equal to it on the CPU, and range_refine4
     against its plain version on the final attempt's inputs, timed the
@@ -90,21 +87,18 @@ exits non-zero and prints no result):
     kernel must have run for every chunk and level, trie_schedule once a
     chunk (each plan built on the card; every later phase that plans on
     the card counts it the same way), and nothing else;
- 9. [cli-gather] the same command with PSI_STREAM=0 (the gather route):
-    only the LF-step kernel, once per chunk and LF step, and a lexsorted
-    hit stream byte-identical to phase 8's;
-10. [cli-trav] the same command with PSI_TRAV_CACHE=0 (the device
+ 9. [cli-trav] the same command with PSI_TRAV_CACHE=0 (the device
     traversal every chunk): only trie_level and traverse_step (k launches
     per chunk and attempt), and a lexsorted hit stream byte-identical to
     phase 8's;
-11. the same command with --device cpu (the plain versions): the
+10. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
-12. [cli-mismatch] --mismatches 1 on cuda over the first chunk's 100,000
+11. [cli-mismatch] --mismatches 1 on cuda over the first chunk's 100,000
     reads: only trie_level (one chunk's levels) and range_refine4 (k per
     attempt), with its hits and rates; then cuda and cpu on the first
     5,000 reads give byte-identical lexsorted hit streams;
-13. counts of 10,000 sampled distinct keys against FMIndex.backward_search;
-14. [baseline] the single-core C++ backward search (csrc/host/psi_fm.cpp
+12. counts of 10,000 sampled distinct keys against FMIndex.backward_search;
+13. [baseline] the single-core C++ backward search (csrc/host/psi_fm.cpp
     through native.fm_backward_batch, the speed baseline, built with
     psi_tpu's native/Makefile flags) over chunk 1's distinct keys, warmed
     up on the first 1,024, in turns with the card's on-path trie search
@@ -116,7 +110,7 @@ exits non-zero and prints no result):
     in kmer-queries/s, each pair's ratio and their median, the levels'
     device time by CUDA events, the compiler command line and the host
     CPU's model (lscpu);
-15. [tools] the tool CLIs on the cell's path index, saved to the
+14. [tools] the tool CLIs on the cell's path index, saved to the
     temporary directory: pindexctl inspect --device cuda (its SeedFinder
     on the card; its uncovered-loci count is phase 3's), to-fasta (the
     paths' total length is inspect's) and to-gam with the loci as edits;
@@ -124,7 +118,7 @@ exits non-zero and prints no result):
     ggsim -t fastq -n 100000 -l 100 -S 7, single and paired-end (-d 500
     -s 50), with the records counted; SeedFinder.nof_uncovered_kmers;
     each with its wall time;
-16. [offpath-scale] the dense cell (psi_tpu_torch/tools/dense.py: 5 Mbp,
+15. [offpath-scale] the dense cell (psi_tpu_torch/tools/dense.py: 5 Mbp,
     a bubble every ~50 bp, ~3 x 10^5 loci, the WalkTree over its cap of
     2^23 nodes, so traverse_device is the route): (a) the traversal as in
     phase 7, traverse_step bit-equal to plain at every step over the
@@ -135,7 +129,7 @@ exits non-zero and prints no result):
     cuda and cpu on its first 5,000 reads give byte-identical lexsorted
     hit streams; (c) at 10^6 loci or more (10 Mbp, a bubble every ~33 bp)
     the traversal alone, as in (a), with no FM index built;
-17. [dindex] the distance index on phase 3's graph: (a) the native build
+16. [dindex] the distance index on phase 3's graph: (a) the native build
     at the insert-size ranges (250, 450), (500, 2000) and (1000, 10000),
     with intervals, seconds and artifact bytes; (b) PSI_DINDEX_BUILD=device
     (path doubling on the card) at the first two, byte-identical to (a),
@@ -144,10 +138,9 @@ exits non-zero and prints no result):
     haplotype, the gap uniform in [0, 2 dmax]; 1/8 anywhere); (d) at
     (250, 450) and (1000, 10000), the probe kernel (dindex_probe.cu,
     one launch per verify_batch_device call) bit-equal to
-    probe_bisect_plain, probe_sort and the first design's kernel on the
-    card, to the NumPy verify_batch, and on 10,000 sampled pairs to the
-    scalar verify; its device time in turns with the first design's and
-    torch.searchsorted's, its enqueued and plain times and probe_sort's,
+    probe_bisect_plain and probe_sort on the card, to the NumPy
+    verify_batch, and on 10,000 sampled pairs to the scalar verify; its
+    device time in turns with torch.searchsorted's, its enqueued and plain times and probe_sort's,
     its bounds by bytes and by 32-byte sectors, the table sectors a pair
     reads; the upload's time and its key directory's build time, bytes
     and buckets; verify_batch_device's wall time split into the host's
@@ -158,8 +151,8 @@ exits non-zero and prints no result):
     as GAF prints the same counts on cuda (one probe launch and nothing
     else) and on the NumPy host probe (PSI_DINDEX_DEVICE=0), the counts
     that the pairs' loci give;
-18. [mesh] the multi-device pipeline (psi_tpu_torch/parallel) on chunk 1
-    of phase 3's cell, the path index loaded as phase 15 saved it: (a)
+17. [mesh] the multi-device pipeline (psi_tpu_torch/parallel) on chunk 1
+    of phase 3's cell, the path index loaded as phase 14 saved it: (a)
     SeedFinder(devices=(card, card)), a mesh naming the one card twice,
     launch counters set to 0 just before its query and read just after:
     its lexsorted hits byte-identical to the single-device finder's,
@@ -180,7 +173,7 @@ exits non-zero and prints no result):
     one card the single route, [cli-cuda]'s chunk-1 hits byte for byte.
     Each kernel of the kernels line gains `mesh_launches`, its launches
     in each of these runs;
-19. [chr-scale] psi_tpu's chromosome-scale configuration
+18. [chr-scale] psi_tpu's chromosome-scale configuration
     (psi_tpu_torch/tools/chr_scale.py: a 4-component pan-genome, variant
     rate 0.01, 20% insertions, k = 30, 6 patched paths with context 30,
     loci every 10 bp, the distance index over (300, 500)) at --chr-mbp
@@ -206,7 +199,7 @@ exits non-zero and prints no result):
     timed in turns with torch.searchsorted, beside its bounds. Each
     kernel of the kernels line gains `chr_scale_launches`, its launches
     in (a), and the three of (d) and (e) a `chr_scale` record;
-20. [gchar3] psi_tpu's human-pan-genome-scale configuration
+19. [gchar3] psi_tpu's human-pan-genome-scale configuration
     (psi_tpu_torch/tools/gchar3.py, psi_tpu's scripts/gchar3_run.py: a
     16-component pan-genome, a bubble every ~1 kbp, 20% insertions,
     k = 30, one unpatched path a region, loci every 10 bp and then at
@@ -594,9 +587,6 @@ KERNELS = {
     "traverse_step": (("traverse", "traverse_step"),
                       "psi_tpu_torch/csrc/traverse_step.cu", [],
                       ["psi_tpu/ops/traverse.py:267"]),
-    "range_refine": (("traverse", "range_refine"),
-                     "psi_tpu_torch/csrc/range_refine.cu", [],
-                     ["psi_tpu/ops/traverse.py:230"]),
     "range_refine4": (("traverse", "range_refine4"),
                       "psi_tpu_torch/csrc/range_refine.cu", [],
                       ["psi_tpu/ops/traverse.py:230"]),
@@ -634,15 +624,12 @@ LIBRARY = {
                    "column chosen per key, and C[c] added; no single call "
                    "gathers by row and column and adds",
     "traverse_step": "none: a fork by prefix sum and searchsorted, clipped "
-                     "gathers of edges and labels, range_refine's rank and a "
+                     "gathers of edges and labels, a one-char rank and a "
                      "second prefix-sum compaction; no single call, and no "
                      "popcount operator",
-    "range_refine": "none: per state two occ-row and plane-word gathers, "
-                    "four masked popcounts at lo and at hi, a prefix sum "
-                    "over the chars and a pick by the state's char; torch "
-                    "has no popcount operator",
-    "range_refine4": "none: range_refine's counts for all four chars; torch "
-                     "has no popcount operator",
+    "range_refine4": "none: per state two occ-row and plane-word gathers, "
+                     "four masked popcounts at lo and at hi and a prefix "
+                     "sum over the chars; torch has no popcount operator",
     "dindex_probe": "torch.searchsorted(pk, qkey, right=True): the search "
                     "alone, without the row checks",
     "trie_schedule": "none: change depths of neighbouring keys, then per "
@@ -653,10 +640,9 @@ LIBRARY = {
 }
 ZERO_COUNTS = dict.fromkeys(KERNELS, 0)
 #: entry points that no route of the port runs (backward_search_sorted
-#: now steps with rank_lf_pair, traverse_device with traverse_step):
-#: checked and timed on a replay of their contract, with 0 launches on
-#: any path
-OFF_PATH = {"rank", "range_refine"}
+#: now steps with rank_lf_pair): checked and timed on a replay of their
+#: contract, with 0 launches on any path
+OFF_PATH = {"rank"}
 
 
 def _wrappers() -> dict:
@@ -771,7 +757,7 @@ def kernel_phase(finder, index) -> tuple[dict, dict]:
     from psi_tpu_torch.ops import fm_fused, fm_stream, fm_trie
 
     sarr = finder._get_stream_arrays()
-    uniq, _, prep = index._onpath_prep
+    uniq, prep = index._onpath_prep.uniq, index._onpath_prep.trie
     levels, npad = prep.parents.shape
     par, chs = prep.parents, prep.chars
     phase("kernels", f"index {sarr.n} chars; payloadC "
@@ -958,7 +944,7 @@ def route_phase(finder, index) -> tuple[dict, dict, dict, dict, dict]:
 
     sarr = finder._get_stream_arrays()
     ftab = finder._get_ftab()
-    uniq, _, prep = index._onpath_prep
+    uniq, prep = index._onpath_prep.uniq, index._onpath_prep.trie
     k = finder.seed_len
     levels = prep.parents.shape[0]
     p = k - levels
@@ -1144,7 +1130,7 @@ def gather_phase(finder, reads, index) -> tuple[dict, dict, dict]:
     fm = finder.pindex.fm
     k = finder.seed_len
     dev = finder.device
-    uniq, _, prep = index._onpath_prep
+    uniq, prep = index._onpath_prep.uniq, index._onpath_prep.trie
     t0 = time.monotonic()
     arrays = finder._get_fm_arrays()
     torch.cuda.synchronize()
@@ -1404,16 +1390,11 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def refine_work(seeds, depth, lo, hi, c):
-    """lo, hi and c read, lo' and hi' written; the seeds index (k depths
-    of occ rows and plane words, a few MB) stays in L2 and is not
-    counted. Operations: two blocks' four masked popcounts and the
-    prefix sum, counted from the kernel source."""
-    return nbytes(lo, hi, c) + nbytes(lo, hi), 40 * lo.numel()
-
-
 def refine4_work(seeds, depth, lo, hi):
-    """lo and hi read, the four (lo', hi') pairs written."""
+    """lo and hi read, the four (lo', hi') pairs written; the seeds index
+    (k depths of occ rows and plane words, a few MB) stays in L2 and is
+    not counted. Operations: two blocks' four masked popcounts and the
+    prefix sum, counted from the kernel source."""
     return nbytes(lo, hi) * 5, 40 * lo.numel()
 
 
@@ -1645,9 +1626,8 @@ def traversal_record(finder, index, k: int, tag: str):
 def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
     """The off-path traversal on chunk 1: the WalkTree probes, the exact
     (fused, traverse_step) and the mismatch-tolerant device traversals,
-    and the range-refine kernels on their inputs. Returns the records of
-    range_refine, range_refine4 and traverse_step and the phase's
-    facts."""
+    and range_refine4 on its inputs. Returns the records of range_refine4
+    and traverse_step and the phase's facts."""
     import numpy as np
     import torch
 
@@ -1685,29 +1665,15 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
           f"and TraverserStats {tuple(int(v) for v in ts)} equal to the "
           f"probe's")
 
-    # range_refine, which no route launches now, on the rank inputs of
-    # the plain step's traversal on the card
+    # the rank inputs of the plain step's traversal on the card, on which
+    # range_refine4's plain version counts its operations below
     sn_d, so_d = finder._get_loci_device(cap)
     with plain_steps(), recorded(trav, "range_refine_plain") as calls:
         trav.traverse_device(g, sa, sn_d, so_d, n, k, cap)
     calls = list(calls)
     require(len(calls) == k, f"the plain traversal ran {len(calls)} ranks")
-    err = max(max(max_abs_err(a, b) for a, b in zip(
-        trav.range_refine(*c), trav.range_refine_plain(*c))) for c in calls)
-    require(err == 0, f"range_refine differs from its plain version by {err}")
-    rec = measure(
-        "range_refine", lambda: [trav.range_refine(*c) for c in calls],
-        lambda: [trav.range_refine_plain(*c) for c in calls], k,
-        [refine_work(*c) for c in calls], err,
-        f"{cap} slots x {k} steps of the plain traversal's rank",
-        plain_reps=1, tag="offpath")
-    rec["plain_ops_per_step"] = device_ops(
-        lambda: trav.range_refine_plain(*calls[0]))
-    rec["launches_per_traversal"] = 0
-    rec["replay_launches"] = k
 
     # the three off-path forms of one chunk, each as the route pays it
-    sn_d, so_d = finder._get_loci_device(cap)
     forms = {
         "host probe": lambda: trav.walks_match(tree, keys),
         "device probe": lambda: trav.walks_match_device(dtree, keys),
@@ -1724,9 +1690,7 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
         phase("offpath", f"{name}: {t:.3f} ms/chunk (host clock)"
               + (f", device busy {busy[name]:.3f} ms" if name in busy
                  else ""))
-    phase("offpath", f"hit columns from the survivors: {cols_ms:.3f} ms; "
-          f"range_refine plain: {rec['plain_ops_per_step']} device "
-          f"operations a step")
+    phase("offpath", f"hit columns from the survivors: {cols_ms:.3f} ms")
 
     # the mismatch-tolerant traversal, m = 1, on the card and on the CPU
     reset_counters()
@@ -1774,10 +1738,10 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
              "approx": {"cap": cap4, "attempts": attempts,
                         "survivors": n_approx, "cuda_s": approx_s,
                         "cpu_s": cpu_s}}
-    return rec, rec4, step_rec, facts
+    return rec4, step_rec, facts
 
 
-# --- phases 8 to 12: the CLI ---------------------------------------------------
+# --- phases 8 to 11: the CLI ---------------------------------------------------
 
 #: psikt's flags of the bacterial cell: k = 20, 2 unpatched paths
 BACTERIAL_FLAGS = ("-l", str(SEED_LEN), "-n", str(N_PATHS), "-P")
@@ -1852,7 +1816,7 @@ def summarize(rep: dict, device: str, wall: float) -> dict:
     return res
 
 
-# --- phase 16: the off-path traversal at scale ------------------------------
+# --- phase 15: the off-path traversal at scale ------------------------------
 
 def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     """[offpath-scale]: the dense cell (tools/dense.py), where the WalkTree
@@ -1994,7 +1958,7 @@ def offpath_scale_phase(tmp: str, n_reads: int) -> tuple[dict, dict, int]:
     return rec, facts, steps
 
 
-# --- phase 17: the distance index ---------------------------------------------
+# --- phase 16: the distance index ---------------------------------------------
 
 def bisect_touched(pk, qkey):
     """Indices of pk that the searches of qkey read (every mid of every
@@ -2236,28 +2200,22 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
                                int(p[i])) == bool(want[i]),
                     f"({dmin}, {dmax}): scalar verify differs at pair {i}")
         t, *q = calls[0]
-        # the first design's kernel reads the four columns contiguous
-        flat = dp.ProbeTables(t.pk, *(c.contiguous() for c in t[1:5]))
         kernel = dp.probe_bisect(t, *q)
         plain = dp.probe_bisect_plain(t, *q)
         sort = dp.probe_sort(t, *q)
-        first = dp.probe_bisect_flat(flat, *q)
         torch.cuda.synchronize()
-        require(torch.equal(kernel, plain) and torch.equal(kernel, sort)
-                and torch.equal(kernel, first),
+        require(torch.equal(kernel, plain) and torch.equal(kernel, sort),
                 f"({dmin}, {dmax}): the probe kernel differs from "
-                f"probe_bisect_plain, probe_sort or the first design's "
-                f"kernel")
+                f"probe_bisect_plain or probe_sort")
         B, n = q[0].numel(), t.pk.numel()
-        # in turns: kernel, first design, search, search, first, kernel
+        # in turns: kernel, search, search, kernel
         turns = {"kernel": lambda: dp.probe_bisect(t, *q),
-                 "first": lambda: dp.probe_bisect_flat(flat, *q),
                  "search": lambda: torch.searchsorted(t.pk, q[0],
                                                       right=True)}
         timed = {name: [] for name in turns}
         for name in (*turns, *reversed(turns)):
             timed[name].append(cuda_ms(turns[name], KERNEL_REPS))
-        ms, flat_ms, lib_ms = (sum(x) / 2 for x in timed.values())
+        ms, lib_ms = (sum(x) / 2 for x in timed.values())
         enq = enqueue_ms(lambda: dp.probe_bisect(t, *q), KERNEL_REPS)
         plain_ms = cuda_ms(lambda: dp.probe_bisect_plain(t, *q), PLAIN_REPS)
         sort_ms = cuda_ms(lambda: dp.probe_sort(t, *q), PLAIN_REPS)
@@ -2290,7 +2248,7 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
         rec = {"max_abs_err": max_abs_err(kernel, plain), "ms": ms,
                "enqueued_ms": enq, "plain_ms": plain_ms,
                "library_ms": lib_ms, "sort_ms": sort_ms,
-               "first_design_ms": flat_ms, "turns_ms": timed,
+               "turns_ms": timed,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": bytes_moved, "ops": ops,
                "sector_bound_ms": sector_ms, "sector_bytes": sector_bytes,
@@ -2304,10 +2262,9 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
         record = record or rec
         phase(tag, f"({dmin}, {dmax}): {B} pairs over {n} rows, "
               f"{rec['accepted']} accepted; kernel = plain = probe_sort = "
-              f"first design = NumPy verify_batch, scalar verify on "
-              f"{DINDEX_SCALAR}; kernel {1e3 * ms:.3f} us on the device "
-              f"(enqueued {1e3 * enq:.3f}, first design {1e3 * flat_ms:.3f}, "
-              f"torch.searchsorted {1e3 * lib_ms:.3f}, plain "
+              f"NumPy verify_batch, scalar verify on {DINDEX_SCALAR}; "
+              f"kernel {1e3 * ms:.3f} us on the device "
+              f"(enqueued {1e3 * enq:.3f}, torch.searchsorted {1e3 * lib_ms:.3f}, plain "
               f"{1e3 * plain_ms:.3f}, probe_sort {1e3 * sort_ms:.3f}); "
               f"bound {1e3 * bound_ms:.3f} us by {bound_by} "
               f"({bytes_moved / 1e6:.2f} MB), by sectors "
@@ -2332,7 +2289,7 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
               f"{parts['kernel_ms']:.3f} ms), download "
               f"{parts['download_s']:.4f}, host after "
               f"{parts['host_after_s']:.4f}")
-        del calls, kernel, plain, sort, first, flat, t, q, top, sub
+        del calls, kernel, plain, sort, t, q, top, sub
     torch.cuda.empty_cache()
 
     # (e) the CLI: -m 250 -M 450 with a path index prefix
@@ -2423,7 +2380,7 @@ def dindex_phase(tmp: str, gfa: str, fastq: str, chunk: int):
     return record, facts, launches["dindex_probe"]
 
 
-# --- phase 13: sampled counts against the host FM index ---------------------------
+# --- phase 12: sampled counts against the host FM index ---------------------------
 
 def check_sampled_counts(finder, uniq, n: int) -> int:
     import numpy as np
@@ -2452,7 +2409,7 @@ def check_sampled_counts(finder, uniq, n: int) -> int:
     return present
 
 
-# --- phase 14: the single-core native baseline against the card ---------------
+# --- phase 13: the single-core native baseline against the card ---------------
 
 def cpu_model() -> str:
     """The host CPU as lscpu names it. A virtualised host may hide the model
@@ -2486,7 +2443,7 @@ def baseline_phase(finder, index) -> dict:
     fm = finder.pindex.fm
     k = finder.seed_len
     sarr, ftab = finder._get_stream_arrays(), finder._get_ftab()
-    uniq, _, prep = index._onpath_prep
+    uniq, prep = index._onpath_prep.uniq, index._onpath_prep.trie
     levels = prep.parents.shape[0]
     n_keys = len(uniq)
     # the trie's keys fed column 0 first: the codes psi_fm.cpp reads
@@ -2551,7 +2508,7 @@ def baseline_phase(finder, index) -> dict:
     return res
 
 
-# --- phase 15: the tool CLIs ------------------------------------------------------
+# --- phase 14: the tool CLIs ------------------------------------------------------
 
 def run_tool(main_fn, argv: list) -> tuple[int, str, str, float]:
     """A tool's main(argv) with its output captured: (exit code, stdout,
@@ -2806,7 +2763,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
         loci = len(mf.get_starting_loci())
         per_loci = -(-loci // D)
         cap_local = max(1 << 12, 1 << (per_loci - 1).bit_length())
-        uniq = mindex._onpath_prep[0]
+        uniq = mindex._onpath_prep.uniq
         shards = _per_shard(mf, mindex, uniq, cap_local << (attempts - 1))
         rec = {"devices": [str(d) for d in devices], "hits": len(rows),
                "keys": int(len(uniq)), "loci": loci,
@@ -2982,7 +2939,7 @@ def mesh_launches(mesh: dict, kname: str) -> dict:
     return out if any_launch else {}
 
 
-# --- phase 19: the chromosome-scale pipeline -------------------------------------
+# --- phase 18: the chromosome-scale pipeline -------------------------------------
 
 #: the pan-genome of [chr-scale] in Mbp. psi_tpu's is 100 (a 172.5 M-char
 #: index), where the phase takes some 740 s on the H100's host and the
@@ -3024,7 +2981,7 @@ def chr_trie_record(finder, index, tag: str, step: str = "(d)") -> dict:
     from psi_tpu_torch.ops import fm_fused
 
     finder.prepare_onpath(index)
-    uniq, _, prep = index._onpath_prep
+    uniq, prep = index._onpath_prep.uniq, index._onpath_prep.trie
     sarr = finder._get_stream_arrays()
     par, chs = prep.parents, prep.chars
     levels, npad = par.shape
@@ -3327,7 +3284,7 @@ def chr_scale_phase(tmp: str, ref_mbp: float):
     return facts, records, launches
 
 
-# --- phase 20: the human-pan-genome-scale run ------------------------------
+# --- phase 19: the human-pan-genome-scale run ------------------------------
 
 #: [gchar3]'s size in Gchar: 16 components of ~1 Mbp, ~0.5 M uncovered
 #: loci at psi_tpu's density (its 3.0 Gchar run has 101.4 M); the full
@@ -3678,9 +3635,8 @@ def main(argv=None) -> int:
          extra["gather"]) = gather_phase(finder, reads, index)
         phase("gather", f"phase {time.monotonic() - t_phase:.1f} s")
         launches["occ_gather"] = extra["gather"]["blocked_launches"]
-        (records["range_refine"], records["range_refine4"],
-         extra["traverse_step_bacterial"], extra["offpath"]) = offpath_phase(
-            finder, index)
+        (records["range_refine4"], extra["traverse_step_bacterial"],
+         extra["offpath"]) = offpath_phase(finder, index)
         extra.update(profile_query(finder, seeds, index))
 
         reset_counters()
@@ -3701,31 +3657,8 @@ def main(argv=None) -> int:
         launches["trie_level"] = cli_launches["trie_level"]
         launches["trie_schedule"] = cli_launches["trie_schedule"]
 
-        # the gather route end to end: PSI_STREAM=0, the variable psi_tpu
-        # reads, set around this run only
-        with env("PSI_STREAM", "0"):
-            reset_counters()
-            hits_g, rep_g, wall = run_cli(gfa, fastq, tmp, "cuda", args.chunk,
-                                          tag="_gather")
-            gather_launches = read_counters()
-        gather_res = summarize(rep_g, "gather", wall)
-        steps = extra["gather"]["steps"]
-        want = {**ZERO_COUNTS, "occ_lf_pair": len(rep_g["chunks"]) * steps}
-        require(gather_launches == want,
-                f"the gather-route CLI run launched {gather_launches}, "
-                f"expected {want} ({len(rep_g['chunks'])} chunks x {steps} "
-                f"steps)")
-        require(hits_g.tobytes() == hits_cuda.tobytes(),
-                f"gather-route hit stream differs from the trie route's: "
-                f"{len(hits_g)} vs {len(hits_cuda)} hits")
-        phase("cli-gather", f"launches {gather_launches}; lexsorted hit "
-              f"stream identical to the trie route's ({len(hits_g)} hits); "
-              f"sustained {gather_res.get('kmer_queries_per_s', 0):.1f} "
-              f"kmer-queries/s and {gather_res.get('hits_per_s', 0):.1f} "
-              f"hits/s (trie route "
-              f"{cuda_res.get('kmer_queries_per_s', 0):.1f} and "
-              f"{cuda_res.get('hits_per_s', 0):.1f})")
-        launches["occ_lf_pair"] = gather_launches["occ_lf_pair"]
+        # the MEM API carries occ_lf_pair (the gather phase's own run)
+        launches["occ_lf_pair"] = extra["gather"]["mems"]["launches"]
 
         # the device traversal every chunk: PSI_TRAV_CACHE=0
         with env("PSI_TRAV_CACHE", "0"):
@@ -3816,7 +3749,7 @@ def main(argv=None) -> int:
         mm_res["small"] = {"reads": N_MISMATCH_READS, "hits": len(hm_cuda),
                            "cuda_wall_s": w_cuda, "cpu_wall_s": w_cpu}
 
-        uniq = index._onpath_prep[0]
+        uniq = index._onpath_prep.uniq
         present = check_sampled_counts(finder, uniq, N_SAMPLED_KEYS)
         phase("counts", f"{min(N_SAMPLED_KEYS, len(uniq))} sampled keys "
               f"({present} present) agree with FMIndex.backward_search")
@@ -3856,12 +3789,8 @@ def main(argv=None) -> int:
                      "chunk 1",
              "rank_lf_pair": "backward_search_sorted, chunk 1",
              "occ_gather": "gather_occ_rows_blocked, one call",
-             "occ_lf_pair": f"psikt CLI with PSI_STREAM=0 (the gather "
-                            f"route), {len(rep_g['chunks'])} chunks",
-             "range_refine": "none: traverse_device runs traverse_step; "
-                             "its numbers come from a replay over the rank "
-                             "inputs of the plain step's traversal of "
-                             "chunk 1's loci",
+             "occ_lf_pair": "find_mems_arrays (the MEM API), chunk 1's "
+                            "reads",
              "traverse_step": f"psikt CLI on the dense cell (WalkTree over "
                               f"its cap), one chunk of {args.chunk} reads",
              "range_refine4": "psikt CLI with --mismatches 1, one chunk of "
@@ -3931,16 +3860,14 @@ def main(argv=None) -> int:
         if kname == "occ_gather":
             kernels[-1].update({k: rec[k] for k in (
                 "sector_bound_ms", "sector_bytes", "sectors_per_position")})
-        if kname in ("range_refine", "range_refine4"):
+        if kname == "range_refine4":
             kernels[-1].update({k: rec[k] for k in (
                 "plain_ops_per_step", "launches_per_traversal")})
-        if kname == "range_refine":
-            kernels[-1]["replay_launches"] = rec["replay_launches"]
         if kname == "dindex_probe":
             kernels[-1]["cells"] = {
                 cell: {k: r[k] for k in (
                     "rows", "queries", "ms", "enqueued_ms", "plain_ms",
-                    "sort_ms", "library_ms", "first_design_ms", "bound_ms",
+                    "sort_ms", "library_ms", "bound_ms",
                     "bound_by", "sector_bound_ms", "sectors_per_pair",
                     "pairs_per_s")}
                 for cell, r in extra["dindex"]["probe"].items()}
@@ -3965,8 +3892,6 @@ def main(argv=None) -> int:
         "card": card,
         "route": extra,
         "sustained": {k: v for k, v in cuda_res.items() if k != "chunks"},
-        "sustained_gather": {k: v for k, v in gather_res.items()
-                             if k != "chunks"},
         "sustained_trav": {k: v for k, v in trav_res.items()
                            if k != "chunks"},
         "mismatch": mm_res,
@@ -3976,7 +3901,6 @@ def main(argv=None) -> int:
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump({**summary, "chunks_cuda": cuda_res["chunks"],
-                   "chunks_gather": gather_res["chunks"],
                    "chunks_trav": trav_res["chunks"]}, fh, indent=2)
     phase("total", f"{summary['total_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))

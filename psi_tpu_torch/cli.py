@@ -4,9 +4,8 @@ Same flags, chunk loop and output as psi_tpu.cli (raw little-endian int64
 quadruples (node_id, node_offset, read_id, read_offset) per hit), with
 this package's SeedFinder. `--device cuda` runs the CUDA kernels and
 raises without a GPU; `--device cpu` runs their plain PyTorch versions.
-The on-path route is the trie chain unless psi_tpu's variables pick
-another: PSI_STREAM=0 runs the gather route (backward search on the
-dense occ table), PSI_DEVICE_LOCATE=0 locates on the host. `-m/-M`
+The on-path route is the trie chain, planned on the producer thread
+(`SeedFinder.prepare_onpath`) and located on the device. `-m/-M`
 build the distance index over the insert-size range (on `--device` under
 PSI_DINDEX_BUILD=device); with `-I PREFIX` it is saved as
 PREFIX_dist_mat_m{dmin}M{dmax}.npz beside the path index and loaded from

@@ -23,10 +23,9 @@
 // from one row of r4 within a few 128-byte lines, and each load and store
 // instruction covers 32 neighbouring children.
 //
-// psi_tpu_torch/tools/gather_sweep.py times this kernel ("the port's
-// compact") beside the designs it was held against, cold (9 levels of
-// rank tables cycled) and as the route runs it: two or four children a
-// thread, consecutive with 8- or 16-byte schedule loads and frontier
+// A design sweep (PERF_ARCHIVE.md) timed this kernel beside the designs
+// it was held against, cold (9 levels of rank tables cycled) and as the
+// route runs it: two or four children a thread, consecutive with 8- or 16-byte schedule loads and frontier
 // stores or strided by the block's width; C[0..4] staged in shared memory;
 // streaming stores. None ran the two-pass route faster than one child a
 // thread (PERF.md); consecutive children spread a warp's gathers

@@ -15,11 +15,11 @@
 // sectors of tables of 3-200 MB, about the size of the 50 MB L2 and past
 // it. Queries come in the caller's order, so neighbouring threads share no
 // sectors, and the time follows the sectors a query reads: the card
-// serves about 100 G of them a second (tools/gather_sweep.py measured
-// 124-125 G/s from L2 and 30.8 G/s from HBM). The first design (psi_dindex_probe_flat, kept to
-// time this one against) bisected the whole table, ~log2(n) dependent
-// reads of which the last ten or so are such sectors, then read up to four
-// int32 columns at row r-1, a sector each.
+// serves about 100 G of them a second (a design sweep measured
+// 124-125 G/s from L2 and 30.8 G/s from HBM). The first design bisected
+// the whole table, ~log2(n) dependent reads of which the last ten or so
+// are such sectors, then read up to four int32 columns at row r-1, a
+// sector each.
 //
 // This design reads about three and a half sectors a query, through
 // structures built once per upload (ops/dindex_probe.directory and
@@ -117,45 +117,6 @@ __global__ void dindex_probe_kernel(const long long* __restrict__ pk,
   out[i] = hit ? 1 : 0;
 }
 
-// The first design: one thread a query bisects the whole table, then reads
-// the four columns at row r-1 with short circuit.
-__global__ void dindex_probe_flat_kernel(const long long* __restrict__ pk,
-                                         const int32_t* __restrict__ src,
-                                         const int32_t* __restrict__ dst,
-                                         const int32_t* __restrict__ iv_lo,
-                                         const int32_t* __restrict__ iv_hi,
-                                         long long n,
-                                         const long long* __restrict__ qkey,
-                                         const int32_t* __restrict__ q_src,
-                                         const int32_t* __restrict__ q_dst,
-                                         const int32_t* __restrict__ s_lo,
-                                         const int32_t* __restrict__ s_hi,
-                                         uint8_t* __restrict__ out,
-                                         long long B) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const long long q = __ldg(qkey + i);
-  long long lo = 0, hi = n;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(pk + mid) <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  bool hit = false;
-  if (lo >= 1) {
-    const long long r = lo - 1;
-    hit = __ldg(src + r) == __ldg(q_src + i) &&
-          __ldg(dst + r) == __ldg(q_dst + i) &&
-          __ldg(iv_hi + r) >= __ldg(s_lo + i) &&
-          __ldg(iv_lo + r) <= __ldg(s_hi + i);
-  }
-  out[i] = hit ? 1 : 0;
-}
-
 unsigned grid_of(long long B) {
   return static_cast<unsigned>((B + kThreads - 1) / kThreads);
 }
@@ -174,28 +135,6 @@ extern "C" int psi_dindex_probe(const void* pk, const void* rows,
         static_cast<const long long*>(pk), static_cast<const int4*>(rows),
         static_cast<const int4*>(top), static_cast<const int32_t*>(sub),
         shift, nb, static_cast<const long long*>(qkey),
-        static_cast<const int32_t*>(q_src),
-        static_cast<const int32_t*>(q_dst),
-        static_cast<const int32_t*>(s_lo), static_cast<const int32_t*>(s_hi),
-        static_cast<uint8_t*>(out), B);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int psi_dindex_probe_flat(const void* pk, const void* src,
-                                     const void* dst, const void* iv_lo,
-                                     const void* iv_hi, long long n,
-                                     const void* qkey, const void* q_src,
-                                     const void* q_dst, const void* s_lo,
-                                     const void* s_hi, void* out, long long B,
-                                     void* stream) {
-  if (n > 0 && B > 0) {
-    dindex_probe_flat_kernel<<<grid_of(B), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(pk), static_cast<const int32_t*>(src),
-        static_cast<const int32_t*>(dst), static_cast<const int32_t*>(iv_lo),
-        static_cast<const int32_t*>(iv_hi), n,
-        static_cast<const long long*>(qkey),
         static_cast<const int32_t*>(q_src),
         static_cast<const int32_t*>(q_dst),
         static_cast<const int32_t*>(s_lo), static_cast<const int32_t*>(s_hi),

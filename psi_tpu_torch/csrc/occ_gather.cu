@@ -21,7 +21,7 @@
 // is 160 MB and the W=8 table 320 MB, past the 50 MB L2: scattered
 // positions make the row reads random sector reads, which the card serves
 // at the same rate whether 16, 32 or 64 bytes of a piece are asked for
-// (psi_tpu_torch/tools/gather_sweep.py measures it), so the kernel is
+// (a design sweep measured it; PERF_ARCHIVE.md), so the kernel is
 // bound by that rate and the streamed bytes. Sorted positions let
 // neighbouring lanes share sectors; the TPU's window staging has no
 // counterpart here. Of the designs the sweep timed, none was faster on

@@ -1,11 +1,9 @@
 // Range refine over the chunk's seeds index: the rank step of the
-// off-path frontier traversal (ops/traverse.py).
-//   psi_range_refine   [lo, hi) of each state narrowed by its char c
-//                      (the rank of traverse_device's step; on the card
-//                      that step runs fused in traverse_step.cu);
+// approximate off-path traversal (ops/traverse.py).
 //   psi_range_refine4  [lo, hi) narrowed by each char 0..3, written as
 //                      [N, 4] pairs (traverse_device_approx, one launch
-//                      per step).
+//                      per step). The exact traversal's one-char rank runs
+//                      fused in traverse_step.cu.
 //
 // Counterpart of psi_tpu/ops/traverse.py::_range_refine (:230), which is
 // plain XLA there, not a Pallas kernel. The port has a kernel for it
@@ -14,19 +12,18 @@
 // the SWAR popcounts, gathers and prefix sums that one thread per state
 // does here.
 //
-// One thread per state reads lo, hi (and c) and forms the four counts at
+// One thread per state reads lo and hi and forms the four counts at
 // each end by seeds_rank.cuh's seeds_counts_at: the occ row (one 16-byte
 // load) and the plane pair (one 8-byte load) of lo's block and of hi's.
 //
 // Every slot of the state vectors is computed, padding slots included, as
 // the plain version computes them, so the two are bit-equal over the whole
-// array. Neither lo <= hi in [0, V] nor c in 0..3 is checked on the
-// device (psi_tpu's contract); the wrappers check shapes, types,
-// contiguity, alignment and the depth.
+// array. lo <= hi in [0, V] is not checked on the device (psi_tpu's
+// contract); the wrapper checks shapes, types, contiguity, alignment and
+// the depth.
 //
-// What bounds it on an H100: a launch moves 20 bytes per state (lo, hi,
-// c in; lo', hi' out), 16 + 32 in the four-char form: a few hundred
-// kilobytes at the traversal's 2^15-slot cap, well under a microsecond at
+// What bounds it on an H100: a launch moves 8 bytes per state in (lo,
+// hi) and 32 out (lo', hi' for four chars): about a megabyte at the traversal's 2^15-slot cap, well under a microsecond at
 // 3.35 TB/s. The seeds index (k depths x ~15.6 K blocks x 24 bytes, ~7.5
 // MB for a 100 K-read chunk) stays in the 50 MB L2. So a launch is bound
 // by its launch and drain, not by bytes or operations.
@@ -39,21 +36,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void range_refine_kernel(const int4* __restrict__ occ_d,
-                                    const int2* __restrict__ planes_d,
-                                    const int32_t* __restrict__ lo,
-                                    const int32_t* __restrict__ hi,
-                                    const int32_t* __restrict__ c,
-                                    int32_t* __restrict__ lo_out,
-                                    int32_t* __restrict__ hi_out, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const int2 r = seeds_refine(occ_d, planes_d, __ldg(lo + s), __ldg(hi + s),
-                              __ldg(c + s));
-  lo_out[s] = r.x;
-  hi_out[s] = r.y;
-}
 
 __global__ void range_refine4_kernel(const int4* __restrict__ occ_d,
                                      const int2* __restrict__ planes_d,
@@ -73,24 +55,6 @@ __global__ void range_refine4_kernel(const int4* __restrict__ occ_d,
 }
 
 }  // namespace
-
-extern "C" int psi_range_refine(const void* occ, const void* planes,
-                                int rows, int depth, const void* lo,
-                                const void* hi, const void* c, void* lo_out,
-                                void* hi_out, int n, void* stream) {
-  if (n > 0) {
-    const size_t at = static_cast<size_t>(depth) * rows;
-    const int grid = (n + kThreads - 1) / kThreads;
-    range_refine_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int4*>(occ) + at,
-        static_cast<const int2*>(planes) + at,
-        static_cast<const int32_t*>(lo), static_cast<const int32_t*>(hi),
-        static_cast<const int32_t*>(c), static_cast<int32_t*>(lo_out),
-        static_cast<int32_t*>(hi_out), n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int psi_range_refine4(const void* occ, const void* planes,
                                  int rows, int depth, const void* lo,

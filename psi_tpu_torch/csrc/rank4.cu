@@ -23,7 +23,7 @@
 // record pays back several times over; on the route's own positions, a
 // sorted frontier whose neighbours share blocks, the two layouts touch
 // about as many lines, and a kernel that moves only pos and the outputs
-// takes most of this one's time (psi_tpu_torch/tools/record_layouts.py).
+// takes most of this one's time (the layout sweep in PERF_ARCHIVE.md).
 // Two neighbouring positions per thread, the position pair read and each
 // output row written as 8-byte pairs, keep two records in flight per
 // thread and halve the loads and stores the warp issues; that pays on a

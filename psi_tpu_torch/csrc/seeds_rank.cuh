@@ -1,5 +1,6 @@
 // Rank over one depth of the chunk's seeds index (records.SeedsIndex),
-// shared by range_refine.cu and traverse_step.cu.
+// shared by range_refine.cu and traverse_step.cu (seeds_refine, the
+// one-char rank, is traverse_step's).
 //
 // Per depth d the seeds index holds, for every 32-key block b,
 //   occ[d, b]    int32 x 4  the count of each char in keys [0, 32 b)

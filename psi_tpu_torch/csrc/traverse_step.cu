@@ -3,10 +3,9 @@
 // index and the order-keeping compaction of the survivors
 // (ops/traverse.py traverse_step; its plain version traverse_step_plain).
 //
-// It replaces range_refine (csrc/range_refine.cu) inside traverse_device,
-// with the ~45 torch operations of the step around it: _fork's cumsum,
-// searchsorted and clipped gathers, _label, the rank, and the second
-// cumsum + searchsorted compaction. It has no TPU kernel: psi_tpu's
+// It replaces the ~45 torch operations of traverse_device's step: _fork's
+// cumsum, searchsorted and clipped gathers, _label, the one-char rank,
+// and the second cumsum + searchsorted compaction. It has no TPU kernel: psi_tpu's
 // _range_refine (psi_tpu/ops/traverse.py:230) and traverse_device (:267)
 // are plain XLA.
 //
@@ -52,7 +51,7 @@
 // offset, lo, hi) and 20 bytes written per survivor; the state's padding
 // slots are 20 bytes each more, since the contract writes the whole cap.
 // The graph arrays and the seeds index (~7.5 MB for a 100 K-read chunk)
-// stay in the 50 MB L2 and are not counted, as for range_refine. That is
+// stay in the 50 MB L2 and are not counted, as for range_refine4. That is
 // a few MB at 10^5-10^6 live states, about a microsecond at 3.35 TB/s,
 // so a step is bound by its dependent gathers (parent, edge, label, two
 // rank blocks), the two look-back chains and the grid barrier, not by

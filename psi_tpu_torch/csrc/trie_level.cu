@@ -21,8 +21,8 @@
 // slots: both stay in the 50 MB L2, so the cost is L2 latency and the
 // cache lines each warp's loads touch, not HBM bytes. The rank words are
 // the smaller part: a kernel that reads everything but them takes about
-// 85% of this one's time (psi_tpu_torch/tools/record_layouts.py). Of the
-// layouts that tool times, payloadC touches the fewest lines: a warp's
+// 85% of this one's time (the layout sweep in PERF_ARCHIVE.md). Of the
+// layouts that sweep timed, payloadC touches the fewest lines: a warp's
 // children share one char and have neighbouring parents, whose blocks
 // lie a few apart, and one 8-byte word per rank packs four blocks of one
 // char into a sector (psi_tpu's match-format payloadW needs two words 512
@@ -58,9 +58,6 @@ constexpr int kThreads = 256;
 // need only the parents. On an H100 the compiled order of these loads
 // matters: forms of this kernel that differed only in where the odd tail
 // is checked, or in the order of the schedule loads, ran 7-10% slower.
-// psi_tpu_torch/tools/record_layouts.py times this kernel ("the port's
-// trie_level") beside the same loads in a kernel of its own ("PC x2");
-// the two should agree.
 __global__ void trie_level_kernel(
     const int32_t* __restrict__ payloadC, int nbpad,
     const int32_t* __restrict__ C, const int32_t* __restrict__ parents,

@@ -10,7 +10,6 @@ __graft_entry__.py).
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -53,28 +52,17 @@ def entry(device: Optional[str] = None):
 
 def _finder_hits(graph, reads, devices, device):
     """A SeedFinder's lexsorted hits on the device-chained on-path route
-    (PSI_STREAM=1, PSI_DEVICE_LOCATE=1) and the off-path traversal."""
+    and the off-path traversal."""
     from psi_tpu_torch.seed_finder import SeedFinder
 
-    saved = {v: os.environ.get(v) for v in ("PSI_STREAM",
-                                            "PSI_DEVICE_LOCATE")}
-    os.environ["PSI_STREAM"] = "1"
-    os.environ["PSI_DEVICE_LOCATE"] = "1"
-    try:
-        f = SeedFinder(graph, seed_len=12, devices=devices, device=device)
-        f.create_path_index(n=1, patched=False)
-        f.add_uncovered_loci()
-        seeds = f.get_seeds(reads)
-        index = f.index_reads(seeds)
-        f.prepare_onpath(index)
-        hits = f.seeds_all_arrays(seeds, index)
-        mesh = f._get_mesh()
-    finally:
-        for v, old in saved.items():
-            if old is None:
-                os.environ.pop(v, None)
-            else:
-                os.environ[v] = old
+    f = SeedFinder(graph, seed_len=12, devices=devices, device=device)
+    f.create_path_index(n=1, patched=False)
+    f.add_uncovered_loci()
+    seeds = f.get_seeds(reads)
+    index = f.index_reads(seeds)
+    f.prepare_onpath(index)
+    hits = f.seeds_all_arrays(seeds, index)
+    mesh = f._get_mesh()
     return np.sort(hits, order=["node_id", "node_offset", "read_id",
                                 "read_offset", "match_len", "gocc"]), mesh
 

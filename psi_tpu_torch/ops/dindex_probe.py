@@ -30,9 +30,6 @@ probe returns bool [B].
                       either device: one stable sort of rows ++ queries
                       (rows first, so at equal keys a row sorts before a
                       query), a cumsum and a scatter-max
-  probe_bisect_flat   the kernel's first design (a bisection over the
-                      whole key table, then up to four column reads),
-                      kept to time the redesign against; no route runs it
   directory_search    the kernel's search through the directory in torch
                       operators: r for each query, and the reads it makes
 
@@ -267,8 +264,6 @@ def probe_sort(t: ProbeTables, qkey, q_src, q_dst, s_lo,
 _PROBE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int64,
                                            ctypes.c_int64] + \
     [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
-_FLAT_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + \
-    [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_void_p]
 
 
 def _check_probe(name: str, dev: torch.device, t: ProbeTables, qkey,
@@ -327,34 +322,3 @@ def probe_bisect(t: ProbeTables, qkey, q_src, q_dst, s_lo,
 
 
 probe_bisect.launches = 0
-
-
-def probe_bisect_flat(t: ProbeTables, qkey, q_src, q_dst, s_lo,
-                      s_hi) -> torch.Tensor:
-    """probe_bisect by the kernel's first design, one thread a query
-    bisecting the whole key table, then the four columns (contiguous)
-    with short circuit: a timing reference that no route runs."""
-    dev = qkey.device
-    if dev.type == "cpu":
-        return probe_bisect_plain(t, qkey, q_src, q_dst, s_lo, s_hi)
-    if dev.type != "cuda":
-        raise ValueError(f"probe_bisect_flat: unsupported device {dev}")
-    _check_probe("probe_bisect_flat", dev, t, qkey,
-                 dict(zip(("src", "dst", "iv_lo", "iv_hi"), t[1:5])),
-                 q_src=q_src, q_dst=q_dst, s_lo=s_lo, s_hi=s_hi)
-    n, B = t.pk.shape[0], qkey.shape[0]
-    if n == 0 or B == 0:
-        return torch.zeros(B, dtype=torch.bool, device=dev)
-    out = torch.empty(B, dtype=torch.bool, device=dev)
-    _build.launch(
-        "psi_dindex_probe_flat", _FLAT_ARGTYPES, dev,
-        t.pk.data_ptr(), t.src.data_ptr(), t.dst.data_ptr(),
-        t.iv_lo.data_ptr(), t.iv_hi.data_ptr(), n, qkey.data_ptr(),
-        q_src.data_ptr(), q_dst.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(),
-        out.data_ptr(), B, _build.stream_ptr(dev),
-    )
-    probe_bisect_flat.launches += 1
-    return out
-
-
-probe_bisect_flat.launches = 0

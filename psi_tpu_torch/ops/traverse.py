@@ -25,7 +25,6 @@ tensors, launch the kernel for CUDA tensors (raising on any other device)
 and count those launches in `.launches`:
 
   traverse_step  csrc/traverse_step.cu  one whole step of traverse_device
-  range_refine   csrc/range_refine.cu   lo', hi' of one char per state
   range_refine4  csrc/range_refine.cu   lo', hi' of all four chars
 
 psi_tpu's `_range_refine` and `traverse_device` are plain XLA; the port
@@ -33,8 +32,8 @@ has kernels for them because torch has no popcount operator, so the plain
 versions spend some tens of device operations per step on what one launch
 does, and because eager torch pays a launch for each of the ~45 operations
 of a step. `traverse_device` runs `traverse_step`, fork, rank and
-compaction in one launch; `range_refine` is the rank of its plain version
-`traverse_step_plain` and keeps its own kernel and chip check.
+compaction in one launch; `range_refine_plain`, psi_tpu's
+`_range_refine`, is the rank of its plain version `traverse_step_plain`.
 
 Departures from psi_tpu:
   * `walks_match` probes the upper end of a prefix range as
@@ -344,9 +343,6 @@ def seeds_to_device(index: SeedsIndex, device) -> SeedsArrays:
 
 # --- range refine: the traversal's rank step ---------------------------------
 
-_REFINE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-                    ctypes.c_int, ctypes.c_void_p]
 _REFINE4_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_int] + [ctypes.c_void_p] * 4 + [
                      ctypes.c_int, ctypes.c_void_p]
@@ -380,9 +376,9 @@ def range_refine4_plain(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
 def range_refine_plain(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
                        hi: torch.Tensor, c: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of csrc/range_refine.cu's psi_range_refine:
-    psi_tpu's `_range_refine`, [lo, hi) narrowed by char c (0..3) per
-    state, int32 [N] each."""
+    """psi_tpu's `_range_refine`: [lo, hi) narrowed by char c (0..3) per
+    state, int32 [N] each; the rank of `traverse_step_plain`, which
+    csrc/traverse_step.cu fuses on the card."""
     lo4, hi4 = range_refine4_plain(seeds, depth, lo, hi)
     col = c.long()[:, None]
     return lo4.gather(1, col)[:, 0], hi4.gather(1, col)[:, 0]
@@ -406,36 +402,6 @@ def _check_refine(name: str, seeds: SeedsArrays, depth: int,
     shapes = {t.shape for t in vectors.values()}
     if len(shapes) > 1 or any(len(s) != 1 for s in shapes):
         raise ValueError(f"{name}: {', '.join(vectors)} must be [N] each")
-
-
-def range_refine(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
-                 hi: torch.Tensor, c: torch.Tensor
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[lo, hi) narrowed by char c at `depth`, per state: (lo', hi'),
-    int32 [N] each, for int32 lo <= hi in [0, V] and c in 0..3 (neither
-    checked on the device), in one launch."""
-    dev = lo.device
-    if dev.type == "cpu":
-        return range_refine_plain(seeds, depth, lo, hi, c)
-    if dev.type != "cuda":
-        raise ValueError(f"range_refine: unsupported device {dev}")
-    _check_refine("range_refine", seeds, depth, dev, lo=lo, hi=hi, c=c)
-    n = lo.shape[0]
-    lo_out = torch.empty(n, dtype=torch.int32, device=dev)
-    hi_out = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return lo_out, hi_out
-    _build.launch(
-        "psi_range_refine", _REFINE_ARGTYPES, dev,
-        seeds.occ.data_ptr(), seeds.planes.data_ptr(), seeds.occ.shape[1],
-        depth, lo.data_ptr(), hi.data_ptr(), c.data_ptr(), lo_out.data_ptr(),
-        hi_out.data_ptr(), n, _build.stream_ptr(dev),
-    )
-    range_refine.launches += 1
-    return lo_out, hi_out
-
-
-range_refine.launches = 0
 
 
 def range_refine4(seeds: SeedsArrays, depth: int, lo: torch.Tensor,
@@ -587,7 +553,7 @@ def _check_step(g: GraphArrays, seeds: SeedsArrays, t: int,
     """The graph and the state for traverse_step's kernel: contiguous
     int32 on `dev`, the state arrays [cap], n_used an int64 and overflow
     a bool 0-d tensor, tstats int64 [3]; the seeds tables as for
-    range_refine."""
+    range_refine4."""
     if not 0 < cap < 1 << 31:
         raise ValueError(f"traverse_step: cap {cap} outside [1, 2^31)")
     _build.check_int32("traverse_step", dev, labels=g.labels,

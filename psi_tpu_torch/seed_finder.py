@@ -4,26 +4,26 @@ The host lifecycle is psi_tpu's, copied: path picking and indexing,
 uncovered loci and their persistence, seeding and the reads-side index,
 the seed join and emission. The device routes are this package's:
 
-  * on-path, the chain (the default): distinct seed k-mers -> host trie
-    schedule (`prepare`) -> ftab-seeded frontier -> level kernels ->
-    counts download -> expand + locate on the device at the exact total
-    -> gpos download -> the join (native psi_emit_join when the host
-    library is loaded);
-  * on-path, psi_tpu's other routes, chosen by the variables psi_tpu
-    reads (`_stream_enabled`, `_device_locate_enabled`): the trie search
-    with a host locate, and the gather route (backward search over code
-    rows on the dense occ table, csrc/occ_gather.cu) with a device or a
-    host locate;
+  * on-path, the chain, the one route: the chunk's plan (`OnpathPlan`:
+    distinct seed k-mers, under --mismatches their Hamming ball, and the
+    trie schedule, on the card csrc/trie_schedule.cu), built once a chunk
+    by `prepare_onpath` on the producer thread -> ftab-seeded frontier ->
+    level kernels -> counts download -> expand + locate on the device at
+    the exact total -> gpos download -> the join into hit rows (native
+    psi_emit_join when the host library is loaded, else NumPy);
   * off-path, psi_tpu's routes chosen as psi_tpu chooses them: the
     WalkTree (built once per loci set, probed per chunk on the finder's
     device) when there are no mismatches, PSI_TRAV_CACHE is on and the
     tree fits PSI_TRAV_CACHE_CAP, and otherwise the per-chunk frontier
     traversal on the device (`traverse_device`, csrc/traverse_step.cu, or
-    with --mismatches `traverse_device_approx`, csrc/range_refine.cu),
-    dispatched before the on-path route and collected after it;
+    with --mismatches `traverse_device_approx` and range_refine4,
+    csrc/range_refine.cu), dispatched before the on-path route and
+    collected after it;
     `seeds_off_paths(device=False)` runs the host BFS mirror;
   * the MEM library API (`find_mems_arrays`, `seeds_on_paths_seqs`): the
-    lockstep MEM automaton on the device, locate on the host;
+    lockstep MEM automaton on the device over the rank layout
+    (`_get_fm_arrays`; csrc/occ_gather.cu's occ_lf_pair on the dense occ
+    table), locate on the host;
   * the distance index (`create_distance_index`, `verify_distance`, its
     artifact saved and loaded with the path index): psi_tpu's lifecycle
     over this package's dindex.py, built on the finder's device under
@@ -44,7 +44,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +64,19 @@ from psi_tpu_torch.records import Records, SeedSet, SeedsIndex, seeding
 from psi_tpu_torch.seed import SEED_DTYPE, Seed
 from psi_tpu_torch import stats as run_stats
 from psi_tpu_torch.stats import NoStats, ProgressEnum, SeedFinderStats
+
+
+class OnpathPlan(NamedTuple):
+    """A chunk's on-path plan (`SeedFinder._plan_onpath`), built once a
+    chunk: by `prepare_onpath` on the producer thread, or by the query."""
+
+    uniq_start: np.ndarray  # [U] first sorted seed of each distinct k-mer
+    uniq_end: np.ndarray    # [U] one past its last
+    origin: np.ndarray      # int64 [S] distinct k-mer of each search key
+    uniq: np.ndarray        # uint64 [N] the distinct search keys, sorted
+    inv: np.ndarray         # [S] each search key's row of uniq
+    #: fm_trie.PreparedTrie, or parallel.mesh.ShardedPreparedTrie on a mesh
+    trie: object
 
 
 class SeedFinder:
@@ -104,7 +117,7 @@ class SeedFinder:
         self._mesh_repl = {}
         # device-side caches (built lazily)
         self._sa = None          # the dense SA, all the chain reads
-        self._fm_arrays = None   # rank layout (gather route, MEM API)
+        self._fm_arrays = None   # rank layout (MEM API)
         self._path_map = None
         self._map_arrays = None
         self._stream_arrays = None
@@ -659,8 +672,8 @@ class SeedFinder:
         return self._sa
 
     def _get_fm_arrays(self):
-        """The rank layout, built at the first gather-route or MEM call
-        (the chain never pays for it) around the cached SA.
+        """The rank layout, built at the first MEM call (the chain never
+        pays for it) around the cached SA.
 
         psi_tpu picks the layout by platform: dense on its CPU backend,
         bit-planes on the TPU, where XLA serializes gathers from a big
@@ -679,28 +692,6 @@ class SeedFinder:
                     ftab=torch.from_numpy(ftab).to(self.device))
             self._fm_arrays = arrays
         return self._fm_arrays
-
-    def _stream_enabled(self) -> bool:
-        """Trie-batched on-path search (ops/fm_trie.py); PSI_STREAM=1/0
-        overrides. psi_tpu defaults it on for the TPU and off on its CPU
-        backend, where its dense gather route wins. Here it is on for
-        both devices: `--device cpu` must run the same route as `--device
-        cuda`, so that comparing the two compares each kernel with its
-        plain version, not one route with another."""
-        env = os.environ.get("PSI_STREAM")
-        if env is not None:
-            return env not in ("", "0")
-        return True
-
-    @staticmethod
-    def _device_locate_enabled() -> bool:
-        """Device-side locate + map; PSI_DEVICE_LOCATE=1/0 overrides.
-        psi_tpu defaults it off on its CPU backend; on here for both
-        devices, for the reason `_stream_enabled` gives."""
-        env = os.environ.get("PSI_DEVICE_LOCATE")
-        if env is not None:
-            return env not in ("0", "")
-        return True
 
     def _get_stream_arrays(self):
         if self._stream_arrays is None:
@@ -734,7 +725,7 @@ class SeedFinder:
     def _onpath_search_keys(self, index: SeedsIndex):
         """The deterministic key pipeline of the on-path route: distinct
         seed k-mers (+ Hamming-ball expansion under --mismatches) and
-        the maps back to seed groups."""
+        the maps back to seed groups: (uniq_start, search_keys, origin)."""
         uniq_keys, uniq_start = np.unique(index.sorted_keys, return_index=True)
         if self.seed_mismatches:
             from psi_tpu_torch.ops.kmers import expand_hamming
@@ -745,169 +736,98 @@ class SeedFinder:
         else:
             search_keys = uniq_keys
             origin = np.arange(len(uniq_keys), dtype=np.int64)
-        return uniq_keys, uniq_start, search_keys, origin
+        return uniq_start, search_keys, origin
+
+    def _plan_onpath(self, index: SeedsIndex) -> OnpathPlan:
+        """The chunk's on-path plan: the key pipeline, the distinct search
+        keys and the trie plan over them, sharded when the finder has a
+        mesh. fm_trie.prepare times its parts as plan-schedule and
+        plan-upload (per shard on a mesh)."""
+        with self.stats.timeit_ts("plan-keys"):
+            uniq_start, search_keys, origin = self._onpath_search_keys(index)
+            uniq_end = np.append(uniq_start[1:], index.size)
+            if self.seed_mismatches:
+                uniq, inv = np.unique(search_keys, return_inverse=True)
+                run_stats.count("plan-ball-keys", len(uniq))
+            else:   # exact seeds: already the distinct keys, sorted
+                uniq, inv = search_keys, np.arange(len(search_keys))
+        mesh = self._get_mesh()
+        if mesh is not None:
+            from psi_tpu_torch.parallel.mesh import prepare_trie_sharded
+
+            trie = prepare_trie_sharded(
+                mesh, uniq, self.seed_len, self.pindex.fm.size,
+                self._get_ftab(),
+            )
+        else:
+            trie = fm_trie.prepare(
+                uniq, self.seed_len, self._get_ftab(), device=self.device
+            )
+        return OnpathPlan(uniq_start, uniq_end, origin, uniq, inv, trie)
 
     def prepare_onpath(self, index) -> None:
-        """Build and upload the chunk's trie plan; runs on the CLI's
-        producer thread, overlapped with the previous chunk's queries.
-        Nothing to plan when the trie route is off."""
-        if index.size == 0 or not self._stream_enabled():
+        """Build the chunk's on-path plan and keep it on the index for the
+        query; runs on the CLI's producer thread, overlapped with the
+        previous chunk's queries."""
+        if index.size == 0:
             return
         if self.pindex.fm is None or self.pindex.fm.size == 0:
             return
         with self.stats.timeit_ts("prepare-onpath", index.rec_offset):
-            with self.stats.timeit_ts("plan-keys"):
-                _, _, search_keys, _ = self._onpath_search_keys(index)
-                if self.seed_mismatches:
-                    uniq, inv = np.unique(search_keys, return_inverse=True)
-                    run_stats.count("plan-ball-keys", len(uniq))
-                else:   # exact seeds: already the distinct keys, sorted
-                    uniq, inv = search_keys, np.arange(len(search_keys))
-            # fm_trie.prepare times its parts as plan-schedule and
-            # plan-upload (per shard on a mesh)
-            mesh = self._get_mesh()
-            if mesh is not None:
-                from psi_tpu_torch.parallel.mesh import prepare_trie_sharded
+            index._onpath_prep = self._plan_onpath(index)
 
-                prepared = prepare_trie_sharded(
-                    mesh, uniq, self.seed_len, self.pindex.fm.size,
-                    self._get_ftab(),
-                )
-            else:
-                prepared = fm_trie.prepare(
-                    uniq, self.seed_len, self._get_ftab(), device=self.device
-                )
-            index._onpath_prep = (uniq, inv, prepared)
-
-    def _search_stream(self, search_keys: np.ndarray, k: int, prep=None):
-        """Trie-batched backward search of search_keys (any order,
-        duplicates allowed), returned in input order as host (lo, hi,
-        local_mask). `prep` is a (uniq, inv, plan) from `prepare_onpath`.
-        local_mask is None except under process-sharded multi-process
-        emission, where it marks the search rows whose distinct key lives
-        on this process's shards (the caller restricts emission to them;
-        the merged stream is the concatenation of the processes' disjoint
-        streams)."""
-        if prep is not None:
-            uniq, inv, prepared = prep
-        else:
-            uniq, inv = np.unique(search_keys, return_inverse=True)
-            prepared = None
-        sarr = self._get_stream_arrays()
-        mesh = self._get_mesh()
-        lmask = None
-        if mesh is not None:
-            from psi_tpu_torch.parallel import mesh as mesh_mod
-
-            if prepared is not None and not isinstance(
-                prepared, mesh_mod.ShardedPreparedTrie
-            ):
-                prepared = None  # plan was built single-device; rebuild
-            if prepared is None:
-                prepared = mesh_mod.prepare_trie_sharded(
-                    mesh, uniq, k, self.pindex.fm.size, self._get_ftab()
-                )
-            lo, hi = mesh_mod.sharded_trie_search(
-                mesh, sarr, uniq, k, ftab=self._get_ftab(),
-                prepared=prepared,
-            )
-            if self._mh_emit_sharded():
-                m_u = np.zeros(len(uniq), dtype=bool)
-                per = prepared.per
-                for d in mesh.local_positions():
-                    if prepared.sizes[d]:
-                        m_u[d * per: d * per + prepared.sizes[d]] = True
-                lmask = m_u[inv]
-        else:
-            if prepared is not None and not isinstance(
-                prepared, fm_trie.PreparedTrie
-            ):
-                prepared = None
-            lo, hi = fm_trie.trie_search(
-                sarr, uniq, k, ftab=self._get_ftab(), prepared=prepared,
-            )
-        return lo[inv], hi[inv], lmask
-
-    def _onpath_chain(self, index, search_keys: np.ndarray, thr: int):
+    def _onpath_chain(self, plan: OnpathPlan, thr: int):
         """Trie search -> counts download -> device expand + locate over
         the device-resident lo/hi -> one global position per hit.
-        Returns (counts[search order], emit mask, fn -> join)."""
+        Returns (counts[search order], emit mask, locate), where locate()
+        gives the join's (emit mask, occ_start_u, gpos_stream)."""
         mesh = self._get_mesh()
         if mesh is not None:
-            return self._onpath_chain_sharded(index, search_keys, thr, mesh)
+            return self._onpath_chain_sharded(plan, thr, mesh)
         k = self.seed_len
-        prep = getattr(index, "_onpath_prep", None)
-        if prep is not None and not isinstance(prep[2], fm_trie.PreparedTrie):
-            prep = None
-        if prep is not None:
-            uniq, inv, prepared = prep
-        else:
-            uniq, inv = np.unique(search_keys, return_inverse=True)
-            prepared = fm_trie.prepare(
-                uniq, k, self._get_ftab(), device=self.device
-            )
+        prepared = plan.trie
         lo_d, hi_d = fm_trie._trie_device(
             self._get_stream_arrays(), prepared.parents, prepared.chars,
             prepared.lo0, prepared.hi0,
         )
         counts_pat = run_stats.download(hi_d - lo_d).numpy().astype(np.int64)
         leaf_perm = prepared.leaf_perm
-        counts = counts_pat[leaf_perm][inv]
+        counts = counts_pat[leaf_perm][plan.inv]
         thr32 = int(min(thr, np.iinfo(np.int32).max))
         emit = (counts > 0) & (counts <= thr32)
 
-        def occurrences():
-            with self.stats.timeit_ts("onpath-locate"):
-                n_leaves = len(uniq)
-                valid = np.arange(len(counts_pat)) < n_leaves
-                w_pat = np.where(
-                    valid & (counts_pat > 0) & (counts_pat <= thr32),
-                    counts_pat, 0,
-                )
-                total_u = int(w_pat.sum())
-                if total_u == 0:
-                    z = np.zeros(0, dtype=np.int64)
-                    return np.nonzero(emit)[0], z, z, z
-                maps = self._get_map_arrays()
-                gpos_d, _ = fm_trie.expand_locate(
-                    self._get_sa(),
-                    maps.str_starts, maps.lengths, maps.seq_off,
-                    lo_d, hi_d, n_leaves, thr32, k, cap=total_u,
-                )
-                gpos_stream = run_stats.download(gpos_d).numpy().astype(
-                    np.int64)
-                occ_start_u = (np.cumsum(w_pat) - w_pat)[leaf_perm]
-            with self.stats.timeit_ts("onpath-join"):
-                return self._chain_join(
-                    counts, emit, inv, occ_start_u, gpos_stream
-                )
+        def locate():
+            n_leaves = len(plan.uniq)
+            valid = np.arange(len(counts_pat)) < n_leaves
+            w_pat = np.where(
+                valid & (counts_pat > 0) & (counts_pat <= thr32),
+                counts_pat, 0,
+            )
+            maps = self._get_map_arrays()
+            gpos_d, _ = fm_trie.expand_locate(
+                self._get_sa(),
+                maps.str_starts, maps.lengths, maps.seq_off,
+                lo_d, hi_d, n_leaves, thr32, k, cap=int(w_pat.sum()),
+            )
+            gpos_stream = run_stats.download(gpos_d).numpy().astype(np.int64)
+            occ_start_u = (np.cumsum(w_pat) - w_pat)[leaf_perm]
+            return emit, occ_start_u, gpos_stream
 
-        return counts, emit, occurrences
+        return counts, emit, locate
 
-    def _onpath_chain_sharded(self, index, search_keys, thr: int, mesh):
+    def _onpath_chain_sharded(self, plan: OnpathPlan, thr: int, mesh):
         """The device-chained on-path route on a multi-device mesh: the
         trie kernels run per shard over the per-shard plans, only counts
         come down, and each shard then expands + locates its own
         device-resident ranges against its copy of the SA (gpos-only
         download per shard, at cap = max(16, next_pow2(max shard
         total))). Same transfer profile per device as the single-device
-        chain; the shared `_chain_join` and native psi_emit_join follow."""
+        chain, and the same join follows."""
         from psi_tpu_torch.parallel import mesh as mesh_mod
         from psi_tpu_torch.parallel.distributed import process_allgather
 
         k = self.seed_len
-        prep = getattr(index, "_onpath_prep", None)
-        if prep is not None and not isinstance(
-            prep[2], mesh_mod.ShardedPreparedTrie
-        ):
-            prep = None
-        if prep is not None:
-            uniq, inv, prepared = prep
-        else:
-            uniq, inv = np.unique(search_keys, return_inverse=True)
-            prepared = mesh_mod.prepare_trie_sharded(
-                mesh, uniq, k, self.pindex.fm.size, self._get_ftab()
-            )
+        prepared = plan.trie
         sarr_r = self._get_mesh_repl(mesh, "sarr", self._get_stream_arrays)
         lo_d, hi_d, counts_d = mesh_mod._sharded_trie_device(
             mesh, sarr_r, prepared, with_counts=True,
@@ -924,22 +844,11 @@ class SeedFinder:
             if prepared.sizes[d]:
                 sl = slice(d * per, d * per + prepared.sizes[d])
                 counts_u[sl] = counts2[d][prepared.leaf_perms[d]]
-        counts = counts_u[inv].astype(np.int64)
+        counts = counts_u[plan.inv].astype(np.int64)
         thr32 = int(min(thr, np.iinfo(np.int32).max))
         emit = (counts > 0) & (counts <= thr32)
 
-        def occurrences():
-            with self.stats.timeit_ts("onpath-locate"):
-                located = locate()
-            if located is None:
-                z = np.zeros(0, dtype=np.int64)
-                return np.nonzero(emit)[0], z, z, z
-            with self.stats.timeit_ts("onpath-join"):
-                return self._chain_join(counts, *located)
-
         def locate():
-            """(emit mask, inv, occ_start_u, gpos_stream) for the join,
-            or None when nothing is emitted."""
             w2 = np.zeros((D, Npad), dtype=np.int64)
             for d in range(D):
                 valid_d = np.arange(Npad) < prepared.sizes[d]
@@ -948,8 +857,6 @@ class SeedFinder:
                     counts2[d], 0,
                 )
             tot_d = w2.sum(axis=1)
-            if not int(tot_d.sum()):
-                return None
             cap = max(16, 1 << (int(tot_d.max()) - 1).bit_length())
             maps = self._get_map_arrays()
             sa_r = self._get_mesh_repl(mesh, "sa", self._get_sa)
@@ -989,131 +896,75 @@ class SeedFinder:
                         + base_d[d]
                     )
                     local_key[sl] = local_ds[d]
-            emit_loc = emit if local_ds.all() else (emit & local_key[inv])
-            return emit_loc, inv, occ_start_u, gpos_stream
+            emit_loc = emit if local_ds.all() else emit & local_key[plan.inv]
+            return emit_loc, occ_start_u, gpos_stream
 
-        return counts, emit, occurrences
+        return counts, emit, locate
 
-    def _onpath_search_locate(self, index, search_keys: np.ndarray, thr):
-        """psi_tpu's non-chain on-path routes: the SA ranges of every
-        search key, from the trie search (PSI_STREAM on) or from the
-        gather route's backward search over code rows (off), then locate
-        and map every occurrence on the device (PSI_DEVICE_LOCATE on) or
-        on the host. Returns (counts, search row per occurrence, node ids,
-        node offsets), or None when nothing is emitted."""
-        tstats = self.stats.get_this_thread_stats()
-        k = self.seed_len
-        fm = self.pindex.fm
-        pm = self._path_map
-        lmask = None
-        if self._stream_enabled():
-            lo, hi, lmask = self._search_stream(
-                search_keys, k, prep=getattr(index, "_onpath_prep", None)
-            )
-        else:
-            arrays = self._get_fm_arrays()
-            codes = torch.from_numpy(fm_ops.keys_to_codes(search_keys, k))
-            lo, hi = fm_ops.backward_search_codes(
-                arrays, run_stats.upload(codes, self.device))
-            lo = run_stats.download(lo).numpy()
-            hi = run_stats.download(hi).numpy()
-        counts = (hi - lo).astype(np.int64)
-        present = counts > 0
-        emit = present & (counts <= thr)
-        tstats.add_seed_gocc_bulk(int(counts[emit].sum()), int(emit.sum()))
-        tstats.inc_gocc_skips(int((present & ~emit).sum()))
-        if lmask is not None:
-            # process-sharded emission: locate and join only the local
-            # key shards (the stats above stay global)
-            emit = emit & lmask
-        if not emit.any():
-            return None
-        emit_idx = np.nonzero(emit)[0]
-        # locate by direct dense-SA range expansion (no padded matrix: a
-        # single repetitive k-mer must not blow up the batch)
-        widths = counts[emit]
-        total = int(widths.sum())
-        occ_rows = np.repeat(np.arange(len(widths)), widths)
-        within = np.arange(total) - np.repeat(
-            np.cumsum(widths) - widths, widths
-        )
-        sa_idx = lo[emit].astype(np.int64)[occ_rows] + within
-        if total and self._device_locate_enabled():
-            d_ids, d_offs = fm_ops.locate_map_device(
-                self._get_fm_arrays(), self._get_map_arrays(),
-                run_stats.upload(torch.from_numpy(sa_idx.astype(np.int32)),
-                                 self.device), k,
-            )
-            node_ids = run_stats.download(d_ids).numpy().astype(np.int64)
-            node_offs = run_stats.download(d_offs).numpy().astype(np.int64)
-        else:
-            sid, q = fm.text_pos_to_string(fm.sa[sa_idx])
-            gpos = pm["seq_off"][sid] + pm["lengths"][sid] - q - k
-            entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
-            node_ids = pm["ids"][entry]
-            node_offs = gpos - pm["starts"][entry] + pm["base"][entry]
-        return counts, emit_idx[occ_rows], node_ids, node_offs
-
-    def _chain_join(self, counts, emit, inv, occ_start_u, gpos_stream):
-        """The deterministic seed join: the device's gpos stream is
-        ordered by (pattern slot, SA rank); per-uniq segments are located
-        from counts alone, then mapped to (node, offset) by one host
-        searchsorted.
-
-        When the native library is loaded the join is deferred: the raw
-        (occ_start_u, gpos_stream, inv) triple is returned for
-        psi_emit_join to fuse with the seed cross-product in one
-        OpenMP pass (the consumer in _seeds_on_paths_impl dispatches
-        on the "raw" tag)."""
+    def _chain_join(self, plan: OnpathPlan, counts, emit, occ_start_u,
+                    gpos_stream, index, seeds) -> np.ndarray:
+        """The deterministic seed join, as SEED_DTYPE rows: the device's
+        gpos stream is ordered by (pattern slot, SA rank), so each emitted
+        search key's occurrences are its distinct key's segment, located
+        from counts alone; each occurrence is mapped to (node, offset) by
+        a search of the path map and crossed with its k-mer's seeds. One
+        native pass (psi_emit_join, OpenMP) where the host library is
+        loaded; else NumPy, in the same row order."""
         from psi_tpu_torch import native
 
-        if native.available():
-            return ("raw", occ_start_u, gpos_stream, inv, emit)
         pm = self._path_map
+        k = self.seed_len
         emit_idx = np.nonzero(emit)[0]
-        widths = counts[emit]
+        widths = counts[emit_idx].astype(np.int64)
+        seed_counts = plan.uniq_end - plan.uniq_start
+        if native.available():
+            ns = seed_counts[plan.origin[emit_idx]].astype(np.int64)
+            out_off = np.zeros(len(emit_idx) + 1, dtype=np.int64)
+            np.cumsum(widths * ns, out=out_off[1:])
+            total = int(out_off[-1])
+            out = np.empty(total, dtype=SEED_DTYPE)
+            if total:
+                ok = native.emit_join(
+                    counts, emit_idx, plan.inv, plan.origin, occ_start_u,
+                    gpos_stream, pm["starts"], pm["ids"], pm["base"],
+                    plan.uniq_start, plan.uniq_end, index.seed_ids,
+                    seeds.seedmap, int(seeds.rec_offset), int(k),
+                    out_off, out.view(np.int64).reshape(total, 6),
+                )
+                if not ok:
+                    # not an assert: under python -O a stripped assert
+                    # would silently emit the uninitialized np.empty rows
+                    # as hits
+                    raise RuntimeError("native emit_join vanished mid-run")
+            return out
         total = int(widths.sum())
         occ_rows = np.repeat(np.arange(len(widths)), widths)
         within = np.arange(total) - np.repeat(
             np.cumsum(widths) - widths, widths
         )
-        u_per = inv[emit_idx][occ_rows]
-        gpos = gpos_stream[occ_start_u[u_per] + within]
+        row_per_occ = emit_idx[occ_rows]
+        gpos = gpos_stream[occ_start_u[plan.inv[row_per_occ]] + within]
         entry = np.searchsorted(pm["starts"], gpos, side="right") - 1
         node_ids = pm["ids"][entry]
         node_offs = gpos - pm["starts"][entry] + pm["base"][entry]
-        return emit_idx, occ_rows, node_ids, node_offs
-
-    def _emit_join_native(self, counts, emit, inv, origin, occ_start_u,
-                          gpos_stream, index, seeds, uniq_start,
-                          uniq_end, k):
-        """Fused emission for the chain route: one native pass walks
-        each emitted row's gpos segment, binary-searches the path map,
-        and writes the seed cross-product directly as SEED_DTYPE rows.
-        Row order is identical to the NumPy join + cross-product."""
-        from psi_tpu_torch import native
-
-        pm = self._path_map
-        emit_idx = np.nonzero(emit)[0]
-        widths = counts[emit_idx].astype(np.int64)
-        ns = (uniq_end - uniq_start)[origin[emit_idx]].astype(np.int64)
-        rows_per = widths * ns
-        out_off = np.zeros(len(emit_idx) + 1, dtype=np.int64)
-        np.cumsum(rows_per, out=out_off[1:])
-        total = int(out_off[-1])
-        out = np.empty(total, dtype=SEED_DTYPE)
-        if total:
-            ok = native.emit_join(
-                counts, emit_idx, inv, origin, occ_start_u,
-                gpos_stream, pm["starts"], pm["ids"], pm["base"],
-                uniq_start, uniq_end, index.seed_ids, seeds.seedmap,
-                int(seeds.rec_offset), int(k),
-                out_off, out.view(np.int64).reshape(total, 6),
-            )
-            if not ok:
-                # not an assert: under python -O a stripped assert would
-                # silently emit the uninitialized np.empty rows as hits
-                raise RuntimeError("native emit_join vanished mid-run")
+        # cross product: repeat each occurrence by its k-mer's seed count
+        ui_per_occ = plan.origin[row_per_occ]
+        n_seeds_per_ui = seed_counts[ui_per_occ]
+        rep_nodes = np.repeat(node_ids, n_seeds_per_ui)
+        rep_offs = np.repeat(node_offs, n_seeds_per_ui)
+        rep_gocc = np.repeat(counts[row_per_occ], n_seeds_per_ui)
+        starts_rep = np.repeat(plan.uniq_start[ui_per_occ], n_seeds_per_ui)
+        within = np.arange(len(rep_nodes)) - np.repeat(
+            np.cumsum(n_seeds_per_ui) - n_seeds_per_ui, n_seeds_per_ui
+        )
+        seed_sel = index.seed_ids[starts_rep + within]
+        out = np.empty(len(rep_nodes), dtype=SEED_DTYPE)
+        out["node_id"] = rep_nodes
+        out["node_offset"] = rep_offs
+        out["read_id"] = seeds.rec_offset + seeds.seedmap[seed_sel, 0]
+        out["read_offset"] = seeds.seedmap[seed_sel, 1]
+        out["match_len"] = k
+        out["gocc"] = rep_gocc
         return out
 
     # === seeds on paths (FM route) ==========================================
@@ -1150,67 +1001,32 @@ class SeedFinder:
 
     def _seeds_on_paths_impl(self, seeds, index):
         tstats = self.stats.get_this_thread_stats()
-        k = self.seed_len
         if index.size == 0:
             return None
         if self.pindex.fm is None or self.pindex.fm.size == 0:
             return None
         with self.stats.timeit_ts("onpath-keys"):
-            uniq_keys, uniq_start, search_keys, origin = (
-                self._onpath_search_keys(index)
-            )
-            uniq_end = np.append(uniq_start[1:], index.size)
+            # the producer's plan; a caller that skipped prepare_onpath
+            # has it built here
+            plan = getattr(index, "_onpath_prep", None)
+            if plan is None:
+                plan = self._plan_onpath(index)
         thr = (self.gocc_threshold if self.gocc_threshold
                else np.iinfo(np.int64).max)
-        if self._stream_enabled() and self._device_locate_enabled():
-            # the trie search, its counts and what they emit (a plan
-            # missing from prepare_onpath is built here)
-            with self.stats.timeit_ts("onpath-trie"):
-                counts, emit, row_per_occ_fn = self._onpath_chain(
-                    index, search_keys, thr)
-                skipped = (counts > 0) & ~emit
-                tstats.add_seed_gocc_bulk(int(counts[emit].sum()),
-                                          int(emit.sum()))
-                tstats.inc_gocc_skips(int(skipped.sum()))
-            if not emit.any():
-                return None
-            join = row_per_occ_fn()
-            if isinstance(join[0], str) and join[0] == "raw":
-                # native fused join: cross-product + SEED_DTYPE fill in
-                # one pass
-                _, occ_start_u, gpos_stream, inv_c, emit_r = join
-                with self.stats.timeit_ts("onpath-join"):
-                    return self._emit_join_native(
-                        counts, emit_r, inv_c, origin, occ_start_u,
-                        gpos_stream, index, seeds, uniq_start, uniq_end, k,
-                    )
-            emit_idx, occ_rows, node_ids, node_offs = join
-            row_per_occ = emit_idx[occ_rows]
-        else:
-            found = self._onpath_search_locate(index, search_keys, thr)
-            if found is None:
-                return None
-            counts, row_per_occ, node_ids, node_offs = found
+        # the trie search, its counts and what they emit
+        with self.stats.timeit_ts("onpath-trie"):
+            counts, emit, locate = self._onpath_chain(plan, thr)
+            skipped = (counts > 0) & ~emit
+            tstats.add_seed_gocc_bulk(int(counts[emit].sum()),
+                                      int(emit.sum()))
+            tstats.inc_gocc_skips(int(skipped.sum()))
+        if not emit.any():
+            return None
+        with self.stats.timeit_ts("onpath-locate"):
+            emit, occ_start_u, gpos_stream = locate()
         with self.stats.timeit_ts("onpath-join"):
-            ui_per_occ = origin[row_per_occ]
-            # cross product: repeat each occurrence by its k-mer's seed count
-            n_seeds_per_ui = (uniq_end - uniq_start)[ui_per_occ]
-            rep_nodes = np.repeat(node_ids, n_seeds_per_ui)
-            rep_offs = np.repeat(node_offs, n_seeds_per_ui)
-            rep_gocc = np.repeat(counts[row_per_occ], n_seeds_per_ui)
-            starts_rep = np.repeat(uniq_start[ui_per_occ], n_seeds_per_ui)
-            within = np.arange(len(rep_nodes)) - np.repeat(
-                np.cumsum(n_seeds_per_ui) - n_seeds_per_ui, n_seeds_per_ui
-            )
-            seed_sel = index.seed_ids[starts_rep + within]
-            out = np.empty(len(rep_nodes), dtype=SEED_DTYPE)
-            out["node_id"] = rep_nodes
-            out["node_offset"] = rep_offs
-            out["read_id"] = seeds.rec_offset + seeds.seedmap[seed_sel, 0]
-            out["read_offset"] = seeds.seedmap[seed_sel, 1]
-            out["match_len"] = k
-            out["gocc"] = rep_gocc
-            return out
+            return self._chain_join(plan, counts, emit, occ_start_u,
+                                    gpos_stream, index, seeds)
 
     # === MEM query path (library API, ref: seed_finder.hpp:1459-1479) ======
     def seeds_on_paths_seq(

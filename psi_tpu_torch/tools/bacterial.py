@@ -1,5 +1,5 @@
-"""The bacterial pan-genome cell that chip_smoke.py and the sweep tools
-run on, made from fixed seeds.
+"""The bacterial pan-genome cell that chip_smoke.py runs on, made from
+fixed seeds.
 
 A graph from `simulate.make_pangenome_graph(REF_LEN, VARIANT_RATE,
 seed=GRAPH_SEED)` (an E. coli-sized reference with a SNP or insertion

@@ -1,5 +1,5 @@
 """Device timing on the card and the sector counts its bounds rest on,
-shared by chip_smoke.py and the sweep tools.
+shared by chip_smoke.py and tools/gchar3.py.
 
   cuda_ms        mean device ms of a callable over many runs (CUDA events
                  around the whole batch, a spin kernel queued first)
@@ -12,8 +12,6 @@ shared by chip_smoke.py and the sweep tools.
                  rows lie in
   probe_sectors  32-byte sectors of the tables that one query of the
                  distance index's probe kernel reads
-  build_sweep    compile a sweep tool's CUDA source with the package's
-                 nvcc flags into a library of its own
 
 The timing functions need a CUDA device: none falls back to a host
 clock. A scattered 4-byte read from a table past L2 costs the card the
@@ -22,8 +20,6 @@ whole 32-byte sector around it, so the bounds count sectors there.
 
 from __future__ import annotations
 
-import ctypes
-import os
 import subprocess
 
 #: cycles of the spin kernel that holds the stream while a timed batch is
@@ -142,18 +138,3 @@ def probe_sectors(t, qkey) -> float:
     first = int((s[:, 0] >= 0).sum())
     rest = int(((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum())
     return (first + rest) / max(qkey.numel(), 1)
-
-
-def build_sweep(tmp: str, name: str, source: str) -> ctypes.CDLL:
-    """Compile a sweep tool's CUDA source (variants of the port's kernels
-    with a plain C interface) into tmp/name.so for sm_90a and load it;
-    raises if nvcc fails."""
-    from psi_tpu_torch import _build
-
-    src = os.path.join(tmp, f"{name}.cu")
-    lib = os.path.join(tmp, f"{name}.so")
-    with open(src, "w") as fh:
-        fh.write(source)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib,
-                    src], check=True)
-    return ctypes.CDLL(lib)

@@ -1,4 +1,4 @@
-"""The yardsticks of chip_smoke.py and the sweep tools, on the CPU: the
+"""The yardsticks of chip_smoke.py and tools/timing.py, on the CPU: the
 sector counts their bounds rest on against a brute-force count, the
 work functions built on them, the vector checks the wrappers run before
 a launch, and the bacterial cell's writers and LF-step replay."""

@@ -160,7 +160,7 @@ def test_prepare_on_the_card_equals_host_on_a_g1k_chunk(dev, tmp_path):
         reads.reshape(-1), np.arange(len(reads) + 1) * reads.shape[1]))
     index = finder.index_reads(finder.get_seeds(recs))
     finder.prepare_onpath(index)
-    uniq, _, plan = index._onpath_prep
+    uniq, plan = index._onpath_prep.uniq, index._onpath_prep.trie
     assert plan.parents.device == dev and len(uniq) > 400_000
     ftab = finder._get_ftab()
     assert ftab.shape[0] == 4 ** 11
@@ -524,10 +524,11 @@ def test_occ_gather_rejects_bad_inputs(index, dev):
             torch.zeros((4, K), dtype=torch.int32, device=dev))
 
 
-def test_gather_route_and_mems_cuda_match_cpu(dev, monkeypatch):
-    """The gather route (PSI_STREAM=0, device and host locate) and the
-    MEM API on the card give the CPU's hits, and the route launched the
-    LF-step kernel once per LF step."""
+def test_gather_route_and_mems_cuda_match_cpu(dev):
+    """The gather route's backward search (backward_search_codes over the
+    finder's dense occ table, from the ftab) on the chunk's distinct keys
+    and the MEM API on the card give the CPU's ranges and hits, and the
+    search launched the LF-step kernel once per LF step."""
     graph = make_pangenome_graph(30_000, 0.02, seed=8)
     itr = HaplotyperRandomIter(graph, seed=12)
     hap = Path(graph)
@@ -539,28 +540,26 @@ def test_gather_route_and_mems_cuda_match_cpu(dev, monkeypatch):
     reads = hs[rng.randint(0, len(hs) - 100, 800)[:, None] + np.arange(100)]
     recs = Records([f"r{i}" for i in range(800)],
                    [r.tobytes().decode() for r in reads])
-    monkeypatch.setenv("PSI_STREAM", "0")
     out = {}
     for device in ("cuda", "cpu"):
         finder = SeedFinder(graph, 20, device=device)
         finder.create_path_index(1, patched=False)
-        seeds = finder.get_seeds(recs)
-        index = finder.index_reads(seeds)
-        rows = []
-        for locate in ("1", "0"):
-            monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
-            n0 = fm_pallas.lf_pair.launches
-            arr = finder.seeds_on_paths_arrays(seeds, index)
-            launched = fm_pallas.lf_pair.launches - n0
-            rows.append(np.sort(arr, order=list(arr.dtype.names)))
+        index = finder.index_reads(finder.get_seeds(recs))
+        codes = torch.from_numpy(fm_ops.keys_to_codes(
+            np.unique(index.sorted_keys), 20)).to(device)
+        n0 = fm_pallas.lf_pair.launches
+        lo, hi = fm_ops.backward_search_codes(finder._get_fm_arrays(), codes)
+        launched = fm_pallas.lf_pair.launches - n0
         mems = finder.find_mems_arrays(recs)
-        out[device] = (rows, np.sort(mems, order=list(mems.dtype.names)),
-                       launched)
-    (rows, mems, launched), (crows, cmems, claunched) = out["cuda"], out["cpu"]
+        out[device] = (lo.cpu().numpy(), hi.cpu().numpy(),
+                       np.sort(mems, order=list(mems.dtype.names)), launched)
+    (lo, hi, mems, launched), (clo, chi, cmems, claunched) = (out["cuda"],
+                                                             out["cpu"])
     assert launched == 20 - finder._ftab_bits() and claunched == 0
-    assert len(rows[0]) > 0 and len(mems) > 0
-    for got in (rows[0], rows[1]):
-        assert got.tobytes() == crows[0].tobytes()
+    found = hi > lo
+    assert found.sum() > 0 and len(mems) > 0
+    np.testing.assert_array_equal(hi - lo, chi - clo)
+    np.testing.assert_array_equal(lo[found], clo[found])
     assert mems.tobytes() == cmems.tobytes()
 
 
@@ -619,10 +618,10 @@ def _offpath_case(k, n_reads=40, seed=3):
 
 
 def test_range_refine_kernels_match_plain(dev):
-    """range_refine and range_refine4 against their plain versions at
-    every depth, at the edges (0, V, empty ranges, block ends) and at
-    random, with an odd count and an empty batch (no launch); bad depths,
-    shapes and a misaligned occ table are refused."""
+    """range_refine4 against its plain version at every depth, at the
+    edges (0, V, empty ranges, block ends) and at random, with an odd
+    count and an empty batch (no launch); bad depths, shapes and a
+    misaligned occ table are refused."""
     _, index, _, _ = _offpath_case(12, n_reads=400)
     seeds = trav.seeds_to_device(index, dev)
     rng = np.random.RandomState(7)
@@ -630,25 +629,21 @@ def test_range_refine_kernels_match_plain(dev):
     lo = rng.randint(0, V + 1, m)
     hi = np.minimum(lo + rng.choice([0, 1, 31, 32, 33, V], m), V)
     lo[:4], hi[:4] = (0, 0, V, 31), (V, 0, V, 32)
-    lo, hi, c = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                 for a in (lo, hi, rng.randint(0, 4, m)))
+    lo, hi = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (lo, hi))
     for depth in range(index.k):
-        n0 = trav.range_refine.launches, trav.range_refine4.launches
-        got = trav.range_refine(seeds, depth, lo, hi, c)
+        n0 = trav.range_refine4.launches
         got4 = trav.range_refine4(seeds, depth, lo, hi)
         empty = trav.range_refine4(seeds, depth, lo[:0], hi[:0])
         torch.cuda.synchronize()
-        assert (trav.range_refine.launches,
-                trav.range_refine4.launches) == (n0[0] + 1, n0[1] + 1)
-        want = trav.range_refine_plain(seeds, depth, lo, hi, c)
+        assert trav.range_refine4.launches == n0 + 1
         want4 = trav.range_refine4_plain(seeds, depth, lo, hi)
-        for g, w in zip((*got, *got4), (*want, *want4)):
+        for g, w in zip(got4, want4):
             assert torch.equal(g, w)
         assert empty[0].shape == (0, 4)
     with pytest.raises(ValueError, match="depth"):
-        trav.range_refine(seeds, index.k, lo, hi, c)
+        trav.range_refine4(seeds, index.k, lo, hi)
     with pytest.raises(ValueError, match=r"must be \[N\]"):
-        trav.range_refine(seeds, 0, lo, hi[:-1], c)
+        trav.range_refine4(seeds, 0, lo, hi[:-1])
     buf = torch.zeros(seeds.occ.numel() + 1, dtype=torch.int32, device=dev)
     off = seeds._replace(occ=buf[1:].view(seeds.occ.shape))
     with pytest.raises(ValueError, match="aligned"):
@@ -744,8 +739,8 @@ def test_traverse_step_kernel_at_edges(dev, case):
 def test_traversals_cuda_match_cpu(dev, k):
     """traverse_device (its k steps under sync debug mode "error": no
     host sync) and traverse_device_approx (m = 1) on the card equal their
-    runs on the CPU over the whole cap, with k traverse_step (range_refine4)
-    launches and no range_refine launch; the device WalkTree probe on the
+    runs on the CPU over the whole cap, with k traverse_step and k
+    range_refine4 launches; the device WalkTree probe on the
     card equals the host probe and the exact traversal's survivors."""
     graph, index, sn, so = _offpath_case(k)
     cap = 1 << 13
@@ -755,8 +750,7 @@ def test_traversals_cuda_match_cpu(dev, k):
         g, sa = trav.graph_to_device(graph, d), trav.seeds_to_device(index, d)
         args = (g, sa, torch.from_numpy(snp).to(d),
                 torch.from_numpy(sop).to(d), len(sn), k, cap)
-        n0 = (trav.traverse_step.launches, trav.range_refine4.launches,
-              trav.range_refine.launches)
+        n0 = trav.traverse_step.launches, trav.range_refine4.launches
         if d.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -766,12 +760,11 @@ def test_traversals_cuda_match_cpu(dev, k):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         launched = (trav.traverse_step.launches - n0[0],
-                    trav.range_refine4.launches - n0[1],
-                    trav.range_refine.launches - n0[2])
+                    trav.range_refine4.launches - n0[1])
         out[d.type] = ([a.cpu().numpy() for a in exact],
                        [a.cpu().numpy() for a in approx], launched)
     (ex, ap, launched), (cex, cap_, claunched) = out["cuda"], out["cpu"]
-    assert launched == (k, k, 0) and claunched == (0, 0, 0)
+    assert launched == (k, k) and claunched == (0, 0)
     for a, b in zip((*ex, *ap), (*cex, *cap_)):
         np.testing.assert_array_equal(a, b)
     nu = int(ex[3])
@@ -892,8 +885,8 @@ def test_dindex_probe_kernel_matches_plain(dev, case):
     (no launch, all false), one row, duplicate keys, negative s_hi, B not
     a multiple of the block, an empty batch (no launch), and the key
     directory's stress cases (one bucket, mostly empty buckets, duplicates
-    across bucket boundaries). The first design's kernel and the
-    directory's search in torch give the same; tables without a directory
+    across bucket boundaries). The directory's search in torch gives the
+    same; tables without a directory
     and wrong dtypes or shapes raise."""
     from psi_tpu_torch.ops import dindex_probe as dp
 
@@ -914,8 +907,6 @@ def test_dindex_probe_kernel_matches_plain(dev, case):
     want = dp.probe_bisect_plain(t, *q)
     assert got.dtype == torch.bool and got.shape == (B,)
     assert torch.equal(got, want) and torch.equal(dp.probe_sort(t, *q), want)
-    flat = dp.ProbeTables(t.pk, *(c.contiguous() for c in t[1:5]))
-    assert torch.equal(dp.probe_bisect_flat(flat, *q), want)
     if n:
         assert torch.equal(dp.directory_search(t, q[0]),
                            torch.searchsorted(t.pk, q[0], right=True))
@@ -931,8 +922,9 @@ def test_dindex_probe_kernel_matches_plain(dev, case):
         dp.probe_bisect(t, q[0].int(), *q[1:])
     with pytest.raises(ValueError, match=r"\[B\]"):
         dp.probe_bisect(t, q[0], q[1].reshape(1, -1), *q[2:])
+    bare = dp.ProbeTables(t.pk, *(c.contiguous() for c in t[1:5]))
     with pytest.raises(ValueError, match="make_tables"):
-        dp.probe_bisect(flat, *q)
+        dp.probe_bisect(bare, *q)      # columns without a directory
 
 
 def test_dindex_verify_batch_device_matches_host(dev, monkeypatch):
@@ -1061,7 +1053,7 @@ def test_chr_scale_config_kernels_match_plain(dev):
     index = finder.index_reads(finder.get_seeds(
         Records([f"r{i}" for i in range(len(seqs))], seqs)))
     finder.prepare_onpath(index)
-    _, _, prep = index._onpath_prep
+    prep = index._onpath_prep.trie
     arr = finder._get_stream_arrays()
     levels = prep.parents.shape[0]
     assert levels == k - finder._ftab_bits()
@@ -1129,7 +1121,7 @@ def test_gchar3_config_kernels_match_plain(dev, monkeypatch, tmp_path):
         k * route["attempts"])
 
     finder.prepare_onpath(index)
-    _, _, prep = index._onpath_prep
+    prep = index._onpath_prep.trie
     arr = finder._get_stream_arrays()
     lo, hi = prep.lo0, prep.hi0
     for j in range(levels):
@@ -1205,7 +1197,7 @@ def test_chunk_spans_and_copies_on_the_card(dev, monkeypatch, trav_cache):
             "onpath-trie",
             "onpath-locate", "onpath-join", "seeds-off-path",
             "offpath-fetch", "offpath-columns"} <= set(secs)
-    plan = index._onpath_prep[2]
+    plan = index._onpath_prep.trie
     assert counts["plan-device-keys"] == plan.n
     assert counts["h2d-bytes"] > 8 * plan.n
     assert counts["d2h-bytes"] >= 4 * (plan.n + plan.parents.shape[1])
@@ -1228,7 +1220,7 @@ def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
     assert len(on) and len(off) and trav.range_refine4.launches > n0
     secs, counts = stats.chunk_totals(800)
     assert {"plan-keys", "onpath-keys", "offpath-fetch"} <= set(secs)
-    plan = index._onpath_prep[2]
+    plan = index._onpath_prep.trie
     assert counts["plan-ball-keys"] == counts["plan-device-keys"] == plan.n
     assert "ball-dedup-rows" not in counts
     cap, attempts = (finder.last_traversal[n] for n in ("cap", "attempts"))

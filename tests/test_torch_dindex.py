@@ -227,7 +227,7 @@ def test_probe_variants_match_psi_tpu(case):
     q = [torch.as_tensor(x) for x in qs]
     n0 = dindex_probe.probe_bisect.launches
     for fn in (dindex_probe.probe_bisect, dindex_probe.probe_bisect_plain,
-               dindex_probe.probe_sort, dindex_probe.probe_bisect_flat):
+               dindex_probe.probe_sort):
         got = fn(t, *q)
         assert got.dtype == torch.bool
         np.testing.assert_array_equal(got.numpy(), want, err_msg=fn.__name__)

@@ -29,7 +29,7 @@ def test_package_never_imports_jax():
     """No module of the port, nor chip_smoke.py, imports jax or psi_tpu
     (the reference): the port keeps its own copies. No module of the
     package imports chip_smoke.py either: what chip_smoke.py shares with
-    the sweep tools lives in psi_tpu_torch/tools."""
+    the package's tools lives in psi_tpu_torch/tools."""
     for path in [*sorted(PKG.rglob("*.py")), REPO / "chip_smoke.py"]:
         in_pkg = path.parent != REPO
         banned = ("jax", "psi_tpu") + (("chip_smoke",) if in_pkg else ())
@@ -102,13 +102,11 @@ _JAX_BLOCKED_RUN = textwrap.dedent("""
     host = []
     finder.seeds_off_paths(seeds, index, host.append, device=False)
     assert len(host) == len(off), (len(host), len(off))
-    os.environ["PSI_STREAM"] = "0"           # the gather route
-    gather = finder.seeds_on_paths_arrays(seeds, index)
-    assert len(gather) == len(on), (len(gather), len(on))
-    mems = finder.find_mems_arrays(reads)
+    mems = finder.find_mems_arrays(reads)    # the MEM API
     assert len(mems) > 0
     finder.seed_mismatches = 1               # the mismatch routes
-    mm_on, mm_off = finder.seeds_all_arrays(seeds, index, split=True)
+    mm_index = finder.index_reads(seeds)     # planned by the query
+    mm_on, mm_off = finder.seeds_all_arrays(seeds, mm_index, split=True)
     assert len(mm_on) > len(on) and len(mm_off) > len(off)
     finder.create_distance_index(100, 300)   # the distance index
     os.environ["PSI_DINDEX_BUILD"] = "device"
@@ -143,7 +141,7 @@ _TOOL_IMPORT = textwrap.dedent("""
 @pytest.mark.parametrize("module,names", [
     ("psi_tpu_torch.tools.timing",
      ["cuda_ms", "bracketed_ms", "card_line", "r4_sectors", "row_sectors",
-      "probe_sectors", "build_sweep"]),
+      "probe_sectors"]),
     ("psi_tpu_torch.tools.bacterial",
      ["write_gfa", "write_reads", "make_data", "first_chunk_index",
       "lf_steps"]),
@@ -162,12 +160,8 @@ _TOOL_IMPORT = textwrap.dedent("""
     ("psi_tpu_torch.tools.alice", ["main", "cmd_dstats", "cmd_analyse"]),
     ("psi_tpu_torch.ops.dindex_build", ["build_super_device"]),
     ("psi_tpu_torch.ops.dindex_probe",
-     ["probe_bisect", "probe_bisect_plain", "probe_sort",
-      "probe_bisect_flat", "make_tables", "directory", "key_buckets",
-      "directory_search"]),
-    ("psi_tpu_torch.tools.gather_sweep", ["main"]),
-    ("psi_tpu_torch.tools.record_layouts", ["main"]),
-    ("psi_tpu_torch.tools.probe_sweep", ["main", "probe_inputs"]),
+     ["probe_bisect", "probe_bisect_plain", "probe_sort", "make_tables",
+      "directory", "key_buckets", "directory_search"]),
     ("psi_tpu_torch.parallel.mesh",
      ["device_mesh", "replicate", "shard_batch", "sharded_backward_search",
       "make_train_step", "prepare_trie_sharded", "sharded_trie_search",
@@ -188,8 +182,8 @@ _TOOL_IMPORT = textwrap.dedent("""
       "draw_reads", "check_artifact", "warm_query", "launches"]),
 ])
 def test_tools_import_alone(module, names):
-    """The timing helpers, the bacterial and dense cells, the sweep
-    tools, the pair workload, the tool CLIs (dindexctl, alice, pindexctl,
+    """The timing helpers, the bacterial and dense cells, the pair
+    workload, the tool CLIs (dindexctl, alice, pindexctl,
     loci_stats, sloci, ggsim), the native baseline's binding and payload,
     the distance index's device modules, the multi-device modules
     (parallel/), graft.py, the multi-process worker, the chr-scale run
@@ -365,8 +359,6 @@ def test_wrappers_raise_on_devices_without_a_kernel():
         fm_pallas.lf_pair(t.reshape(-1, 8), t, t, t, t)
     seeds = trav.SeedsArrays(t.reshape(2, -1, 4), t[:4096].reshape(2, -1, 2),
                              100)
-    with pytest.raises(ValueError, match="unsupported device"):
-        trav.range_refine(seeds, 0, t, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
         trav.range_refine4(seeds, 0, t, t)
     state = trav.TraverseState(t, t, t, t, t, t[0].bool(), t[:3].long())

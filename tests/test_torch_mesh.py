@@ -260,8 +260,10 @@ def test_seedfinder_mesh_matches_psi_tpu(monkeypatch, devices, mm, thr,
 @pytest.mark.parametrize("locate", ["0", "1"])
 def test_seedfinder_mesh_offpath_loci(monkeypatch, locate):
     """Off-path hits through the branch node, so the loci-sharded
-    traversal carries them; with PSI_DEVICE_LOCATE=0 the on-path route is
-    the sharded trie search with a host locate."""
+    traversal carries them; the port's one on-path route, the sharded
+    chain, under psi_tpu's chained route (PSI_DEVICE_LOCATE=1) and its
+    sharded trie search with a host locate (0), which the variables pick
+    for psi_tpu only."""
     monkeypatch.setenv("PSI_STREAM", "1")
     monkeypatch.setenv("PSI_DEVICE_LOCATE", locate)
     rng = np.random.RandomState(4)

@@ -2,9 +2,11 @@
 psi_tpu's CLI (its chained stream route and its defaults) on a small
 synthetic pan-genome, at gocc thresholds 0 and 5: equal lexsorted binary
 hit streams and equal report seedhits, with hits both on and off the
-indexed paths. psi_tpu's other on-path routes (the gather route and the
-trie search with a host locate, chosen by PSI_STREAM and
-PSI_DEVICE_LOCATE) and the MEM and whole-read APIs against psi_tpu's, in
+indexed paths. The port's one on-path route, the chain, against each of
+psi_tpu's on-path routes (the gather route and the trie search with a
+host locate, which PSI_STREAM and PSI_DEVICE_LOCATE pick for psi_tpu
+only), planned by prepare_onpath or by the query, with the native join
+and the NumPy one; the MEM and whole-read APIs against psi_tpu's, in
 process. The off-path routes (the WalkTree, the device traversal under
 PSI_TRAV_CACHE=0 or past PSI_TRAV_CACHE_CAP, the host BFS mirror) and the
 mismatch routes (--mismatches 1 and 2) against psi_tpu's, on a graph with
@@ -161,9 +163,10 @@ def _onpath(finder, reads):
         "stream-hostlocate"])
 def test_onpath_routes_match_psi_tpu(finders, monkeypatch, stream, locate,
                                      dense):
-    """psi_tpu's non-chain on-path routes, chosen by its PSI_STREAM and
-    PSI_DEVICE_LOCATE: the port's hit multiset equals psi_tpu's under the
-    same variables (and the same rank layout) and the port's chain's."""
+    """psi_tpu's non-chain on-path routes, picked by its PSI_STREAM and
+    PSI_DEVICE_LOCATE (with its rank layout): the port's chain, which
+    reads neither variable, gives psi_tpu's hit multiset under each, and
+    the chain's without them; it builds no rank layout."""
     jf, tf, jreads, treads = finders
     for name in ("PSI_STREAM", "PSI_DEVICE_LOCATE"):
         monkeypatch.delenv(name, raising=False)
@@ -179,13 +182,11 @@ def test_onpath_routes_match_psi_tpu(finders, monkeypatch, stream, locate,
     want = _onpath(jf, jreads)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, chain)
-    arrays = tf._fm_arrays
     if stream == "0":
+        arrays = jf._fm_arrays
         assert (arrays.occ_dense is not None) == dense
         assert (arrays.planes is not None) == (not dense)
-        assert arrays.sa is tf._get_sa()
-    else:
-        assert arrays is None             # the trie route needs no layout
+    assert tf._fm_arrays is None          # the chain needs no rank layout
 
 
 @pytest.mark.parametrize("thr,max_mem", [(0, 0), (1, 0), (0, 3)])
@@ -350,10 +351,10 @@ def test_seeds_all_arrays_matches_psi_tpu(trav_finders, monkeypatch, route,
     for f in (jf, tf):
         f._trav_tree = None
         monkeypatch.setattr(f, "seed_mismatches", mm)
-    n0 = trav.range_refine.launches, trav.range_refine4.launches
+    n0 = trav.traverse_step.launches, trav.range_refine4.launches
     got = _all_rows(tf, treads)
     want = _all_rows(jf, jreads)
-    assert (trav.range_refine.launches, trav.range_refine4.launches) == n0
+    assert (trav.traverse_step.launches, trav.range_refine4.launches) == n0
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     assert len(got[0]) > 0 and len(got[1]) > 0
@@ -374,10 +375,10 @@ def test_seeds_all_arrays_matches_psi_tpu(trav_finders, monkeypatch, route,
 ], ids=["chain", "stream-hostlocate", "gather-devlocate", "gather-hostlocate"])
 def test_onpath_mismatch_routes_match_psi_tpu(trav_finders, monkeypatch,
                                               stream, locate):
-    """With one mismatch every on-path route (the chain, the trie search
-    with a host locate, the gather route with a device or host locate)
-    joins the Hamming-ball hits back to their seeds through `origin`:
-    psi_tpu's hits under the same variables, and the chain's."""
+    """With one mismatch the port's chain joins the Hamming-ball hits back
+    to their seeds through `origin`: psi_tpu's hits on each of its routes
+    (the chain, the trie search with a host locate, the gather route with
+    a device or host locate), and the chain's without the variables."""
     jf, tf, jreads, treads = trav_finders
     for f in (jf, tf):
         monkeypatch.setattr(f, "seed_mismatches", 1)
@@ -390,6 +391,70 @@ def test_onpath_mismatch_routes_match_psi_tpu(trav_finders, monkeypatch,
     np.testing.assert_array_equal(got, _onpath(jf, jreads))
     np.testing.assert_array_equal(got, chain)
     assert len(got) > len(_exact_onpath(tf, treads))
+
+
+@pytest.mark.parametrize("mm", [0, 1])
+def test_planned_chunk_builds_its_keys_once(trav_finders, monkeypatch, mm):
+    """prepare_onpath builds the chunk's plan, and the query reads it: the
+    key pipeline (at m = 1 the Hamming ball) runs once a chunk, and the
+    hits are those of a chunk that the query plans itself."""
+    _, tf, _, treads = trav_finders
+    monkeypatch.setattr(tf, "seed_mismatches", mm)
+    calls = []
+    real = SeedFinder._onpath_search_keys
+    monkeypatch.setattr(SeedFinder, "_onpath_search_keys",
+                        lambda self, index: calls.append(index.size)
+                        or real(self, index))
+    seeds = tf.get_seeds(treads)
+    index = tf.index_reads(seeds)
+    tf.prepare_onpath(index)
+    assert len(calls) == 1
+    plan = index._onpath_prep
+    assert len(plan.inv) == len(plan.origin) and len(plan.uniq) <= len(
+        plan.inv)
+    on, off = tf.seeds_all_arrays(seeds, index, split=True)
+    assert len(calls) == 1 and len(on) > 0
+    unplanned = tf.index_reads(seeds)
+    on2, off2 = tf.seeds_all_arrays(seeds, unplanned, split=True)
+    assert len(calls) == 2
+    np.testing.assert_array_equal(_rows(on), _rows(on2))
+    np.testing.assert_array_equal(_rows(off), _rows(off2))
+
+
+@pytest.mark.parametrize("mm", [0, 1], ids=["exact", "mismatch1"])
+def test_unplanned_chunk_matches_psi_tpu(trav_finders, monkeypatch, mm):
+    """A chunk queried without prepare_onpath (a library caller) is
+    planned by the query, which keeps no plan on the index, and gives
+    psi_tpu's on-path hits."""
+    jf, tf, jreads, treads = trav_finders
+    for f in (jf, tf):
+        monkeypatch.setattr(f, "seed_mismatches", mm)
+    seeds = tf.get_seeds(treads)
+    index = tf.index_reads(seeds)
+    got = _rows(tf.seeds_on_paths_arrays(seeds, index))
+    assert getattr(index, "_onpath_prep", None) is None
+    assert len(got) > 0
+    np.testing.assert_array_equal(got, _onpath(jf, jreads))
+
+
+@pytest.mark.parametrize("mm,thr", [(0, 0), (1, 0), (0, 2)])
+def test_numpy_join_matches_native_join(trav_finders, monkeypatch, mm, thr):
+    """Without the host library the join builds, in NumPy, the rows that
+    native psi_emit_join builds, in the same order."""
+    from psi_tpu_torch import native
+
+    _, tf, _, treads = trav_finders
+    monkeypatch.setattr(tf, "seed_mismatches", mm)
+    monkeypatch.setattr(tf, "gocc_threshold", thr)
+    assert native.available(), native.load_error
+    seeds = tf.get_seeds(treads)
+    index = tf.index_reads(seeds)
+    tf.prepare_onpath(index)
+    want = tf.seeds_on_paths_arrays(seeds, index)
+    monkeypatch.setattr(native, "available", lambda: False)
+    got = tf.seeds_on_paths_arrays(seeds, index)
+    assert len(want) > 0 and got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
 
 
 def _exact_onpath(finder, reads):

@@ -154,17 +154,19 @@ def _refine_inputs(index, rng, n=3000):
 
 
 def test_range_refine_matches_psi_tpu():
-    """range_refine and range_refine4 (their CPU wrappers, which run the
-    plain versions and count no launch) equal psi_tpu's _range_refine at
-    every depth, per char and for all four chars."""
+    """range_refine_plain (the rank of traverse_step_plain) and
+    range_refine4 (its CPU wrapper, which runs the plain version and
+    counts no launch) equal psi_tpu's _range_refine at every depth, per
+    char and for all four chars."""
     graph, index, _, _, _ = _graph_reads(11, 13, n_reads=400)
     sa, jsa = trav.seeds_to_device(index, "cpu"), jtrav.seeds_to_device(index)
     lo, hi, c = _refine_inputs(index, np.random.RandomState(1))
-    n0 = trav.range_refine.launches, trav.range_refine4.launches
+    n0 = trav.range_refine4.launches
     for depth in range(index.k):
         want = jtrav._range_refine(jsa, depth, jnp.asarray(lo),
                                    jnp.asarray(hi), jnp.asarray(c))
-        got = trav.range_refine(sa, depth, *map(torch.from_numpy, (lo, hi, c)))
+        got = trav.range_refine_plain(sa, depth,
+                                      *map(torch.from_numpy, (lo, hi, c)))
         for a, b in zip(got, want):
             assert a.dtype == torch.int32
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -177,7 +179,7 @@ def test_range_refine_matches_psi_tpu():
                                     jnp.full(len(lo), ch, dtype=jnp.int32))
             np.testing.assert_array_equal(lo4[:, ch].numpy(), np.asarray(w[0]))
             np.testing.assert_array_equal(hi4[:, ch].numpy(), np.asarray(w[1]))
-    assert (trav.range_refine.launches, trav.range_refine4.launches) == n0
+    assert trav.range_refine4.launches == n0
 
 
 def _starts(sn, so, cap):
