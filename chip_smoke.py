@@ -79,9 +79,10 @@ exits non-zero and prints no result):
     traversals' wall, busy, enqueued and peak-memory figures; the time
     of each off-path form (host probe, device probe,
     device traversal); then `traverse_device_approx` (m = 1, cap doubled
-    until it fits) on the card equal to it on the CPU, and range_refine4
-    against its plain version on the final attempt's inputs, timed the
-    same way;
+    until it fits; range_refine4 and traverse_step_approx k an attempt
+    and nothing else) on the card equal to it on the CPU, and
+    range_refine4 against its plain version on the final attempt's
+    inputs, timed the same way;
  8. the CLI (`psi_tpu_torch.cli.main`) with --device cuda, launch
     counters set to 0 just before and read just after: the trie-level
     kernel must have run for every chunk and level, trie_schedule once a
@@ -94,9 +95,11 @@ exits non-zero and prints no result):
 10. the same command with --device cpu (the plain versions): the
     lexsorted hit streams must be byte-identical;
 11. [cli-mismatch] --mismatches 1 on cuda over the first chunk's 100,000
-    reads: only trie_level (one chunk's levels) and range_refine4 (k per
-    attempt), with its hits and rates; then cuda and cpu on the first
-    5,000 reads give byte-identical lexsorted hit streams;
+    reads: only trie_level (one chunk's levels), range_refine4 and
+    traverse_step_approx (k of each per attempt, as the chunk's
+    approx-step-launches counter says), with its hits and rates; then
+    cuda and cpu on the first 5,000 reads give byte-identical lexsorted
+    hit streams;
 12. counts of 10,000 sampled distinct keys against FMIndex.backward_search;
 13. [baseline] the single-core C++ backward search (csrc/host/psi_fm.cpp
     through native.fm_backward_batch, the speed baseline, built with
@@ -218,7 +221,16 @@ exits non-zero and prints no result):
     whole cap) bit-equal to their plain versions, timed beside their
     bounds by bytes and by 32-byte sectors. Each kernel of the kernels
     line gains `gchar3_launches`, its launches in (a), and the two of
-    (c) a `gchar3` record.
+    (c) a `gchar3` record;
+20. [approx-step] traverse_step_approx at the shape of the benchmark's
+    g1k_common.mm1 cell (its graph and a 2,000-read chunk made by the
+    port's generators at the cell's values): the approximate traversal
+    from the route's cap, doubled until it fits, k traverse_step_approx
+    and k range_refine4 an attempt and nothing else with no host sync in
+    its steps; the kernel bit-equal to traverse_step_approx_plain at
+    every step of every attempt over the whole cap; per cap, by CUDA
+    events, the kernel's device us, range_refine4's, the step's and the
+    plain step's, and the enqueued us a step, beside its bound.
 
 Then, on lines of their own, the run's total seconds, the kernels JSON
 and the card line, and last
@@ -590,6 +602,9 @@ KERNELS = {
     "range_refine4": (("traverse", "range_refine4"),
                       "psi_tpu_torch/csrc/range_refine.cu", [],
                       ["psi_tpu/ops/traverse.py:230"]),
+    "traverse_step_approx": (("traverse", "traverse_step_approx"),
+                             "psi_tpu_torch/csrc/traverse_step_approx.cu",
+                             [], ["psi_tpu/ops/traverse.py:411"]),
     # no TPU kernel: psi_tpu's probe_bisect and probe_sort are plain XLA
     "dindex_probe": (("dindex_probe", "probe_bisect"),
                      "psi_tpu_torch/csrc/dindex_probe.cu", [],
@@ -630,6 +645,11 @@ LIBRARY = {
     "range_refine4": "none: per state two occ-row and plane-word gathers, "
                      "four masked popcounts at lo and at hi and a prefix "
                      "sum over the chars; torch has no popcount operator",
+    "traverse_step_approx": "none: a fork by prefix sum and searchsorted, "
+                            "clipped gathers of edges and labels, a cost "
+                            "and budget mask over four chars, a second "
+                            "prefix-sum compaction and a rank-select of "
+                            "the char; no single call",
     "dindex_probe": "torch.searchsorted(pk, qkey, right=True): the search "
                     "alone, without the row checks",
     "trie_schedule": "none: change depths of neighbouring keys, then per "
@@ -1699,9 +1719,10 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
         packed, cap4, attempts = approx_packed(finder, g, sa, k, dev)
         approx_s = time.monotonic() - t0
         got = read_counters()
-    require(got == {**ZERO_COUNTS, "range_refine4": k * attempts},
+    require(got == {**ZERO_COUNTS, "range_refine4": k * attempts,
+                    "traverse_step_approx": k * attempts},
             f"traverse_device_approx launched {got}, expected "
-            f"{k * attempts} range_refine4")
+            f"{k * attempts} range_refine4 and traverse_step_approx")
     t0 = time.monotonic()
     cpu_packed, cpu_cap, _ = approx_packed(
         finder, trav.graph_to_device(finder.graph, "cpu"),
@@ -1739,6 +1760,199 @@ def offpath_phase(finder, index) -> tuple[dict, dict, dict, dict]:
                         "survivors": n_approx, "cuda_s": approx_s,
                         "cpu_s": cpu_s}}
     return rec4, step_rec, facts
+
+
+# --- phase 20: the approximate step at the mm1 cell's shape -------------------
+
+#: g1k_common.mm1's graph and chunk, made by the port's own generators at
+#: the values of that benchmark cell (seedbench/configs/g1k_common_mm1.json,
+#: seedbench/traffic/mm1.json): a 5 Mbp reference with a bubble every
+#: ~360 bp, 4% of them insertions, 4 haplotypes, 2,000 reads of 100 bp
+#: with 1% substitutions, k = 20 with one substitution, 2 unpatched paths
+MM1_REF_LEN = 5_000_000
+MM1_VARIANT_RATE = 0.0028
+MM1_INDEL_FRAC = 0.04
+MM1_CHUNK = 2_000
+MM1_SEEDS = (5, 7, 11)  # graph, haplotypes, reads
+APPROX_REPS = 3  # traversals per timing: 20 steps of a few launches each
+
+
+def approx_step_work(n_used: int, n2: int, cap: int):
+    """One traverse_step_approx_kernel launch: (bytes, operations, bytes
+    of the whole cap). Per live parent its 24 bytes of state (locus,
+    node, offset, lo, hi, budget: lo and hi read by range_refine4 just
+    before) and its 32-byte lo4 / hi4 row read, 24 bytes written per
+    survivor inside the cap, as traverse_step's bound counts live states
+    only; the whole-cap figure writes every slot of the cap instead, the
+    padding the contract fills included. The graph arrays stay in L2 and
+    are not counted. Operations: about 40 integer operations a live
+    parent (edge and label indexing, the four chars' masks), counted
+    from the kernel source."""
+    live = min(n_used, cap)
+    return 56 * live + 24 * min(n2, cap), 40 * live, 48 * live + 24 * cap
+
+
+def approx_step_inputs(tmp: str, device="cuda"):
+    """The mm1 cell's graph and first chunk (MM1_*), written as GFA and
+    FASTQ and read back as the CLI reads them: a SeedFinder on `device`
+    with one substitution a seed, the CLI's starting loci (N_PATHS paths
+    unpatched, the uncovered-loci scan; no FM index) and the chunk's
+    seeds index. Returns (finder, index)."""
+    from psi_tpu_torch.io import load_graph
+    from psi_tpu_torch.io.fastq import FastxStream
+    from psi_tpu_torch.pathutil import sequence
+    from psi_tpu_torch.records import Records
+    from psi_tpu_torch.seed_finder import SeedFinder
+    from psi_tpu_torch.simulate import make_pangenome_graph
+    from psi_tpu_torch.tools.bacterial import write_gfa, write_reads
+    from psi_tpu_torch.tools.ggsim import simulate_haplotypes
+
+    gseed, hseed, rseed = MM1_SEEDS
+    graph = make_pangenome_graph(MM1_REF_LEN, MM1_VARIANT_RATE,
+                                 indel_frac=MM1_INDEL_FRAC, seed=gseed)
+    gfa, fastq = (os.path.join(tmp, f"mm1.{ext}") for ext in ("gfa", "fastq"))
+    write_gfa(graph, gfa)
+    haps = [sequence(h) for _, h in simulate_haplotypes(graph, 4, seed=hseed)]
+    write_reads(haps, fastq, MM1_CHUNK, seed=rseed)
+    finder = SeedFinder(load_graph(gfa), SEED_LEN, seed_mismatches=1,
+                        device=device)
+    finder.pick_paths(N_PATHS, patched=False)
+    finder.add_uncovered_loci(1)
+    names, packed = FastxStream(fastq).read_chunk_packed(MM1_CHUNK)
+    reads = Records(names, rec_offset=0, packed=packed)
+    return finder, finder.index_reads(finder.get_seeds(reads))
+
+
+def approx_step_phase(tmp: str) -> tuple[dict, dict]:
+    """[approx-step]: traverse_step_approx at the shape of g1k_common.mm1
+    (approx_step_inputs): the approximate traversal from the route's cap,
+    doubled until it fits, each attempt's k steps under sync debug mode
+    "error" with the launch counters set to 0 before the first and read
+    after the last (k traverse_step_approx and k range_refine4 an
+    attempt, nothing else); the kernel against traverse_step_approx_plain
+    at every step of every attempt, over the whole cap; per cap, by CUDA
+    events, the kernel's device us a launch (each launch right after its
+    range_refine4, events around the kernel alone), range_refine4's, the
+    whole step's and the plain step's, and the step's enqueued us, beside
+    the kernel's bound; a kernel time of 0 or below its bound fails.
+    Returns (record, facts)."""
+    import torch
+
+    from psi_tpu_torch.ops import traverse as trav
+
+    tag = "approx-step"
+    t_phase = time.monotonic()
+    workdir = os.path.join(tmp, "approx_step")
+    os.makedirs(workdir, exist_ok=True)
+    finder, index = approx_step_inputs(workdir)
+    k, mm = finder.seed_len, finder.seed_mismatches
+    n = len(finder.starting_loci)
+    g = finder._get_graph_arrays()
+    sa = trav.seeds_to_device(index, finder.device)
+    phase(tag, f"g1k_common.mm1's shape: {n} loci, {index.size} seeds in "
+          f"{MM1_CHUNK} reads; set-up {time.monotonic() - t_phase:.1f} s")
+
+    cap = max(1 << 15, 1 << (n - 1).bit_length())
+    attempts = []
+    reset_counters()
+    with recorded(trav, "traverse_step_approx") as calls:
+        while True:
+            sn_d, so_d = finder._get_loci_device(cap)
+            torch.cuda.synchronize()
+            first = len(calls)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = trav.traverse_device_approx(g, sa, sn_d, so_d, n, k,
+                                                  cap, mm)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            attempts.append((cap, calls[first:]))
+            if not bool(out[4].cpu()):
+                break
+            cap *= 2
+    got = read_counters()
+    steps = k * len(attempts)
+    require(got == {**ZERO_COUNTS, "range_refine4": steps,
+                    "traverse_step_approx": steps},
+            f"traverse_device_approx launched {got}, expected {steps} "
+            f"range_refine4 and traverse_step_approx")
+    survivors = int(out[3].cpu())
+
+    err, per_cap = 0, []
+    for cap_a, calls_a in attempts:
+        counts = []
+        for c in calls_a:
+            (gs, *gc), (ws, *wc) = (trav.traverse_step_approx(*c),
+                                    trav.traverse_step_approx_plain(*c))
+            err = max(err, *(max_abs_err(a, b)
+                             for a, b in zip((*gs, *gc), (*ws, *wc))))
+            counts.append((int(c[4]), int(wc[0]), int(wc[1])))
+        require(err == 0, f"traverse_step_approx differs from its plain "
+                f"version by {err} at cap {cap_a}")
+        n_used = [torch.as_tensor(c[4], dtype=torch.int64, device=sa.occ.device)
+                  for c in calls_a]
+
+        def refine(j, calls_a=calls_a):
+            _, seeds, t, st, _, _ = calls_a[j]
+            return trav.range_refine4(seeds, t, st.lo, st.hi)
+
+        def kernel(j, rows, calls_a=calls_a, n_used=n_used):
+            g_, _, _, st, _, cap_ = calls_a[j]
+            return trav._launch_step_approx(g_, st, *rows, n_used[j], cap_)
+
+        def fused(calls_a=calls_a):
+            return [trav.traverse_step_approx(*c) for c in calls_a]
+
+        work = [approx_step_work(nu, n2, cap_a) for nu, _, n2 in counts]
+        bound_ms, bound_by, bytes_moved, ops = mean_bound(
+            [(b, o) for b, o, _ in work])
+        cap_bound_ms = bound(sum(w[2] for w in work) / k, ops)[0]
+        ms = bracketed_ms(refine, kernel, k, APPROX_REPS)
+        per_cap.append({
+            "cap": cap_a, "steps": counts, "ms": ms,
+            "range_refine4_ms": cuda_ms(
+                lambda: [refine(j) for j in range(k)], APPROX_REPS) / k,
+            "step_ms": cuda_ms(fused, APPROX_REPS) / k,
+            "enqueued_ms": host_ms(fused, APPROX_REPS) / k,
+            "plain_ms": sum(cuda_ms(
+                lambda c=c: trav.traverse_step_approx_plain(*c), 2)
+                for c in calls_a) / k,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": bytes_moved, "ops": ops, "cap_bound_ms": cap_bound_ms,
+        })
+        r = per_cap[-1]
+        phase(tag, f"cap {cap_a}: bit-equal to plain at all {k} steps over "
+              f"the whole cap (live parents {counts[0][0]} .. "
+              f"{counts[-1][0]}, overflow "
+              f"{'yes' if cap_a != cap else 'no'}); kernel "
+              f"{1e3 * ms:.3f} us/launch on the device (range_refine4 "
+              f"{1e3 * r['range_refine4_ms']:.3f}, the step "
+              f"{1e3 * r['step_ms']:.3f}), enqueued "
+              f"{1e3 * r['enqueued_ms']:.3f} us/step, plain "
+              f"{1e3 * r['plain_ms']:.3f} us/step; bound "
+              f"{1e3 * bound_ms:.3f} us by {bound_by} "
+              f"({bytes_moved / 1e6:.3f} MB/launch), with the whole cap "
+              f"written {1e3 * cap_bound_ms:.3f} us")
+        require(ms > 0 and ms >= bound_ms,
+                f"traverse_step_approx at cap {cap_a}: {1e3 * ms:.3f} us a "
+                f"launch, not above its bound {1e3 * bound_ms:.3f} us")
+    last = per_cap[-1]
+    rec = {"max_abs_err": err, **{key: last[key] for key in (
+        "ms", "enqueued_ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+        "ops", "cap_bound_ms")}, "library_ms": None,
+           "shape": f"{cap} slots x {k} steps of traverse_device_approx "
+                    f"(m={mm}), {n} loci of g1k_common.mm1's shape, the "
+                    f"final of {len(attempts)} attempts", "caps": per_cap}
+    facts = {"loci": n, "seeds": index.size, "attempts": len(attempts),
+             "cap": cap, "survivors": survivors,
+             "phase_s": time.monotonic() - t_phase}
+    phase(tag, f"{n} loci: caps {[c for c, _ in attempts]}, {survivors} "
+          f"survivors; {steps} traverse_step_approx and range_refine4 "
+          f"launches, no host sync in any attempt's steps; phase "
+          f"{facts['phase_s']:.1f} s")
+    del finder, index, sa, g, attempts, calls
+    torch.cuda.empty_cache()
+    return rec, facts
 
 
 # --- phases 8 to 11: the CLI ---------------------------------------------------
@@ -2812,7 +3026,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
             f"[mesh] (b) --mismatches 1: mesh {len(rowsm)} hits, single "
             f"{len(rows1)}")
     require(lm == {**ZERO_COUNTS, "trie_level": 2 * levels,
-                   "range_refine4": refine4}
+                   "range_refine4": refine4, "traverse_step_approx": refine4}
             and refine4 > 0 and refine4 % (2 * SEED_LEN) == 0,
             f"[mesh] (b) launched {lm}")
     res["b"] = {"reads": MESH_MM_READS, "hits": len(rowsm),
@@ -2821,7 +3035,8 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
     phase(tag, f"(b) --mismatches 1, first {MESH_MM_READS} reads: {len(rowsm)}"
           f" hits byte-identical to the single-device finder's; mesh "
           f"plan {pm:.3f} s + query {wm:.3f} s (single {t1:.3f} s in all); "
-          f"range_refine4 {refine4}, trie_level {lm['trie_level']}")
+          f"range_refine4 and traverse_step_approx {refine4}, trie_level "
+          f"{lm['trie_level']}")
 
     # (c) two processes sharing the card, gloo on localhost
     sock = socket.socket()
@@ -2869,6 +3084,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
                     and got["traverse.traverse_step"] > 0
                     and got["traverse.traverse_step"] % SEED_LEN == 0
                     and got["traverse.range_refine4"] == 0
+                    and got["traverse.traverse_step_approx"] == 0
                     and got["fm_pallas.lf_pair"] == 0,
                     f"[mesh] (c) process {q} launched {got} ({mode})")
     res["c"] = mh
@@ -2920,6 +3136,7 @@ def mesh_phase(finder, reads, seeds, index, tmp: str, gfa: str, fastq: str,
 WORKER_COUNTERS = {"trie_level": "fm_fused.trie_level",
                    "traverse_step": "traverse.traverse_step",
                    "range_refine4": "traverse.range_refine4",
+                   "traverse_step_approx": "traverse.traverse_step_approx",
                    "occ_lf_pair": "fm_pallas.lf_pair"}
 
 
@@ -3710,9 +3927,12 @@ def main(argv=None) -> int:
         require(mm_launches == {**ZERO_COUNTS,
                                 "trie_level": extra["levels"],
                                 "trie_schedule": 1,
-                                "range_refine4": steps4}
-                and steps4 >= SEED_LEN and steps4 % SEED_LEN == 0,
-                f"the --mismatches 1 CLI run launched {mm_launches}")
+                                "range_refine4": steps4,
+                                "traverse_step_approx": steps4}
+                and steps4 >= SEED_LEN and steps4 % SEED_LEN == 0
+                and c1["counters"].get("approx-step-launches") == steps4,
+                f"the --mismatches 1 CLI run launched {mm_launches} "
+                f"(counters {c1['counters']})")
         require(c1["hits_off"] > 0 and len(hits_m) > len(
             hits_cuda[hits_cuda[:, 2] < args.chunk]),
                 "--mismatches 1 found no more hits than exact matching")
@@ -3733,6 +3953,7 @@ def main(argv=None) -> int:
               f"{mm_res['kmer_queries_per_s']:.1f} kmer-queries/s, "
               f"{mm_res['hits_per_s']:.1f} hits/s; launches {mm_launches}")
         launches["range_refine4"] = steps4
+        launches["traverse_step_approx"] = steps4
         small = head_fastq(fastq, os.path.join(tmp, "small.fastq"),
                            N_MISMATCH_READS)
         mm_small = {device: run_cli(gfa, small, tmp, device, args.chunk,
@@ -3777,6 +3998,9 @@ def main(argv=None) -> int:
         extra["gchar3"], g3_records, g3_launches = gchar3_phase(
             tmp, args.gchar3)
 
+        records["traverse_step_approx"], extra["approx_step"] = (
+            approx_step_phase(tmp))
+
     paths = {"trie_level": f"psikt CLI, {n_chunks} chunks",
              "trie_schedule": f"psikt CLI, {n_chunks} chunks (one plan a "
                               f"chunk)",
@@ -3795,6 +4019,8 @@ def main(argv=None) -> int:
                               f"its cap), one chunk of {args.chunk} reads",
              "range_refine4": "psikt CLI with --mismatches 1, one chunk of "
                               f"{args.chunk} reads",
+             "traverse_step_approx": "psikt CLI with --mismatches 1, one "
+                                     f"chunk of {args.chunk} reads",
              "dindex_probe": f"alice dstats --device cuda, "
                              f"{DINDEX_GAF_PAIRS} read pairs against the "
                              f"{DINDEX_HORIZONS[0]} index"}
@@ -3805,6 +4031,11 @@ def main(argv=None) -> int:
         require(kname in OFF_PATH or launches[kname] > 0,
                 f"{kname} was never launched on its path")
         rec = records[kname]
+        # a time of 0 or one below the least the card could take was not
+        # measured: the clock missed the kernel
+        require(rec["ms"] > 0 and rec["ms"] >= rec["bound_ms"],
+                f"{kname}: {rec['ms']} ms a launch against its bound "
+                f"{rec['bound_ms']} ms")
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces[0], "replaces_all": replaces,
@@ -3863,6 +4094,9 @@ def main(argv=None) -> int:
         if kname == "range_refine4":
             kernels[-1].update({k: rec[k] for k in (
                 "plain_ops_per_step", "launches_per_traversal")})
+        if kname == "traverse_step_approx":
+            kernels[-1].update({k: rec[k] for k in ("cap_bound_ms",
+                                                      "caps")})
         if kname == "dindex_probe":
             kernels[-1]["cells"] = {
                 cell: {k: r[k] for k in (

@@ -36,7 +36,9 @@ and its offpath-fetch / offpath-columns) and its `counters` (h2d-bytes
 and d2h-bytes copied, plan-device-keys: the keys whose plan the card
 built, traverse-retries; with --mismatches plan-ball-keys, the plan's
 distinct search keys, approx-slots, k x the state cap of each
-approximate traversal attempt: the rows range_refine4 runs over, and from
+approximate traversal attempt: the rows range_refine4 runs over,
+approx-step-launches, the launches of the approximate traversal's step
+kernel on the card (k an attempt; none on the CPU), and from
 --mismatches 2 ball-dedup-rows, the Hamming balls' rows sorted to drop
 repeats, which a ball of one mismatch does not hold).
 """

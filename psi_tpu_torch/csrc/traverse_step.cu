@@ -28,8 +28,9 @@
 // Every clip of the plain version is kept, so padding parents gather in
 // bounds and compute what the plain version computes.
 //
-// Design. A persistent cooperative grid (as many blocks as fit on the
-// card at once, at most one per 256-slot tile of the cap) takes tiles of
+// Design (the scan, look-back, barrier and launch in step_scan.cuh). A
+// persistent cooperative grid (as many blocks as fit on the card at
+// once, at most one per 256-slot tile of the cap) takes tiles of
 // 256 parent slots by an atomic ticket, up to the last tile with a live
 // parent (n_used read on the device); one thread per parent slot. Per
 // tile: the block scans the children counts and finds the children's
@@ -62,25 +63,11 @@
 #include <cuda_runtime.h>
 
 #include "seeds_rank.cuh"
+#include "step_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // parent slots per tile, one a thread
-constexpr int kWarps = kThreads / 32;
-constexpr int kKeep = 4;       // children a thread keeps in registers
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kAggregate = 1ull << 62;
-constexpr uint64_t kInclusive = 2ull << 62;
-constexpr uint64_t kValue = (1ull << 62) - 1;
-
-struct GraphArgs {
-  const int32_t* labels;   // [n_labels] codes, 4 = N
-  const int32_t* loff;     // [n + 1] label offsets
-  const int32_t* indptr;   // [n + 1] out-edge CSR
-  const int32_t* indices;  // [n_edges] 1-based node ids
-  int n_labels;
-  int n_edges;
-};
+constexpr int kKeep = 4;  // children a thread keeps in registers
 
 struct StateIn {
   const int32_t* locus;
@@ -98,17 +85,7 @@ struct StateOut {
   int32_t* hi;
 };
 
-// The scratch header (64 bytes, then the two descriptor arrays). All of it
-// is 0 before a launch and is left 0 after it, except `pad`, `totals` and
-// the barrier's generation.
-struct Scratch {
-  unsigned ticket;
-  unsigned bar_count;
-  unsigned bar_gen;
-  int32_t pad[5];         // the padding record when new_n >= cap
-  long long totals[2];    // new_n, n2, from the last live tile
-};
-static_assert(sizeof(Scratch) <= 64, "the descriptors start at byte 64");
+using Scratch = StepScratch<5>;
 
 struct Child {
   int32_t node, off, lo, hi;  // off already advanced past the char
@@ -175,89 +152,6 @@ __device__ __forceinline__ void write_slot(const StateOut& out, long long s,
   out.off[s] = off;
   out.lo[s] = lo;
   out.hi[s] = hi;
-}
-
-// Exclusive scan of v over the block; `total` gets the block's sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
-                                                    int& total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kWarps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
-    }
-    if (lane < kWarps) warp_sums[lane] = w;
-  }
-  __syncthreads();
-  total = warp_sums[kWarps - 1];
-  const int out = (warp ? warp_sums[warp - 1] : 0) + x - v;
-  __syncthreads();
-  return out;
-}
-
-__device__ __forceinline__ uint64_t peek(const unsigned long long* d) {
-  return *reinterpret_cast<const volatile unsigned long long*>(d);
-}
-
-// Run by warp 0 of a tile: publish the tile's aggregate, sum the
-// predecessors' descriptors back to the nearest inclusive prefix (32 at a
-// time, waiting on any not yet published), publish the tile's inclusive
-// prefix. Returns the tile's exclusive prefix on every lane.
-__device__ long long look_back(unsigned long long* desc, int tile,
-                               long long aggregate) {
-  const int lane = threadIdx.x & 31;
-  if (tile == 0) {
-    if (lane == 0) atomicExch(desc, kInclusive | aggregate);
-    return 0;
-  }
-  if (lane == 0) atomicExch(desc + tile, kAggregate | aggregate);
-  long long exclusive = 0;
-  for (int end = tile - 1;; end -= 32) {
-    const int idx = end - lane;
-    uint64_t d = idx >= 0 ? peek(desc + idx) : kInclusive;
-    while (__any_sync(kFull, (d >> 62) == 0)) {
-      if ((d >> 62) == 0) d = peek(desc + idx);
-    }
-    const unsigned inclusive = __ballot_sync(kFull, (d >> 62) == 2);
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    long long v = lane <= stop ? static_cast<long long>(d & kValue) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-    exclusive += v;
-    if (inclusive) break;
-  }
-  if (lane == 0) atomicExch(desc + tile, kInclusive | (exclusive + aggregate));
-  return exclusive;
-}
-
-// Every block of the cooperative grid waits here for all the others. The
-// last to arrive resets the count and advances the generation.
-__device__ void grid_barrier(Scratch* scr) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = &scr->bar_gen;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(&scr->bar_count, 1u) == gridDim.x - 1) {
-      atomicExch(&scr->bar_count, 0u);
-      __threadfence();
-      atomicAdd(&scr->bar_gen, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -408,17 +302,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int kMaxDevices = 64;
 int g_grid[kMaxDevices];  // co-resident blocks per device, 0 = not asked yet
 
 }  // namespace
 
-// Bytes of scratch a launch at `cap` needs: the header and two 8-byte
-// descriptors per 256-slot tile.
+// Bytes of scratch a launch at `cap` needs (step_scan.cuh).
 extern "C" long long psi_traverse_step_scratch_bytes(int cap) {
-  const long long tiles = (static_cast<long long>(cap) + kThreads - 1) /
-                          kThreads;
-  return 64 + 16 * tiles;
+  return step_scratch_bytes(cap);
 }
 
 extern "C" int psi_traverse_step(
@@ -428,24 +318,7 @@ extern "C" int psi_traverse_step(
     const void* off, const void* lo, const void* hi, const void* n_used,
     const void* overflow_in, const void* tstats_in, void* out, void* counts,
     void* overflow_out, void* scratch, int cap, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (g_grid[dev] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, traverse_step_kernel, kThreads, 0);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    g_grid[dev] = per_sm * sms;
-  }
-  const long long tiles = (static_cast<long long>(cap) + kThreads - 1) /
-                          kThreads;
-  const int grid = static_cast<int>(min(static_cast<long long>(g_grid[dev]),
-                                        tiles));
+  const long long tiles = step_tiles(cap);
   const size_t at = static_cast<size_t>(depth) * rows;
   GraphArgs g{static_cast<const int32_t*>(labels),
               static_cast<const int32_t*>(loff),
@@ -471,9 +344,5 @@ extern "C" int psi_traverse_step(
   unsigned long long* desc_b = desc_a + tiles;
   void* args[] = {&g, &occ_d, &planes_d, &st, &n_used_p, &ov_in, &ts_in,
                   &so, &cnt, &ov_out, &scr, &desc_a, &desc_b, &cap, &depth};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(traverse_step_kernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return step_launch(traverse_step_kernel, g_grid, cap, args, stream);
 }

@@ -24,8 +24,12 @@ Kernel, behind wrappers that run the plain PyTorch version for CPU
 tensors, launch the kernel for CUDA tensors (raising on any other device)
 and count those launches in `.launches`:
 
-  traverse_step  csrc/traverse_step.cu  one whole step of traverse_device
-  range_refine4  csrc/range_refine.cu   lo', hi' of all four chars
+  traverse_step         csrc/traverse_step.cu         one whole step of
+                                                      traverse_device
+  range_refine4         csrc/range_refine.cu          lo', hi' of all four
+                                                      chars
+  traverse_step_approx  csrc/traverse_step_approx.cu  the rest of a step of
+                                                      traverse_device_approx
 
 psi_tpu's `_range_refine` and `traverse_device` are plain XLA; the port
 has kernels for them because torch has no popcount operator, so the plain
@@ -34,6 +38,10 @@ does, and because eager torch pays a launch for each of the ~45 operations
 of a step. `traverse_device` runs `traverse_step`, fork, rank and
 compaction in one launch; `range_refine_plain`, psi_tpu's
 `_range_refine`, is the rank of its plain version `traverse_step_plain`.
+`traverse_device_approx` runs `range_refine4` over the parent state and
+`traverse_step_approx`, the fork, the label, the four-char fork under the
+budget and the compaction, in place of the ~96 operations of its plain
+step `traverse_step_approx_plain`.
 
 Departures from psi_tpu:
   * `walks_match` probes the upper end of a prefix range as
@@ -528,17 +536,18 @@ _STEP_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12
                   + [ctypes.c_int, ctypes.c_void_p])
 _scratch_lock = threading.Lock()
-#: traverse_step's scratch per (device index, stream pointer)
+#: the step kernels' scratch per (entry, device index, stream pointer)
 _scratch: dict = {}
 
 
-def _step_scratch(dev: torch.device, cap: int) -> torch.Tensor:
-    """The kernel's scratch on `dev` for the current stream: zeroed once,
-    left zeroed by every launch (so launches on one stream share it),
-    grown when a larger cap needs more."""
-    words = -(-_build.call("psi_traverse_step_scratch_bytes",
+def _step_scratch(dev: torch.device, cap: int,
+                  entry: str = "psi_traverse_step") -> torch.Tensor:
+    """The scratch of kernel `entry` on `dev` for the current stream:
+    zeroed once, left zeroed by every launch (so launches of the kernel
+    on one stream share it), grown when a larger cap needs more."""
+    words = -(-_build.call(f"{entry}_scratch_bytes",
                            [ctypes.c_int], ctypes.c_longlong, cap) // 8)
-    key = (dev.index, _build.stream_ptr(dev))
+    key = (entry, dev.index, _build.stream_ptr(dev))
     with _scratch_lock:
         buf = _scratch.get(key)
         if buf is None or buf.numel() < words:
@@ -655,6 +664,158 @@ def traverse_device(
             state.tstats)
 
 
+class ApproxState(NamedTuple):
+    """The mismatch-tolerant traversal's state between steps, on one
+    device: the frontier (slots < n_used in use, the rest padding) with
+    each state's remaining mismatch budget, and the overflow flag."""
+
+    locus_idx: torch.Tensor  # int32 [cap] starting locus of each state
+    node: torch.Tensor       # int32 [cap]
+    off: torch.Tensor        # int32 [cap] offset of the next char
+    lo: torch.Tensor         # int32 [cap] seeds range
+    hi: torch.Tensor         # int32 [cap]
+    budget: torch.Tensor     # int32 [cap] substitutions still allowed
+    overflow: torch.Tensor   # bool 0-d: some step had more children than cap
+
+
+def traverse_step_approx_plain(g: GraphArrays, seeds: SeedsArrays, t: int,
+                               state: ApproxState, n_used, cap: int):
+    """Plain PyTorch version of csrc/traverse_step_approx.cu: step t of
+    `traverse_device_approx`. Every state in use expands into its graph
+    children (`_fork`), each takes one label char (`_label`; 'N' kills)
+    and forks into a child per read char c' whose range (`range_refine4`
+    over the children's [lo, hi)) is not empty and whose cost (c' differs
+    from the label) the budget covers; the survivors fill the slots in
+    (graph child, char) order by a second prefix sum and searchsorted,
+    the char picked by a rank-select over each child's 4-bit mask. Slots
+    >= n2 take the values of graph child slot cap - 1 with char 0.
+    `n_used` is an int or an int64 0-d tensor. Returns (state, new_n, n2),
+    the counts int64 0-d tensors."""
+    dev = state.lo.device
+    slot = torch.arange(cap, dtype=torch.int64, device=dev)
+    chars = torch.arange(4, dtype=torch.int32, device=dev)
+    # phase 1: graph-edge fork/compaction (as the exact traversal)
+    new_n, parent, node1, off1, valid = _fork(g, state.node, state.off,
+                                              n_used, slot, cap)
+    overflow = state.overflow | (new_n > cap)
+    bud1 = state.budget[parent]
+
+    # phase 2: character fork, a child per read character c'
+    gc = _label(g, node1, off1)
+    alive1 = valid & (gc < 4)  # 'N' kills
+    los, his = range_refine4(seeds, t, state.lo[parent], state.hi[parent])
+    cost = (chars[None, :] != gc.clamp(0, 3)[:, None]).to(torch.int32)
+    child_ok = alive1[:, None] & (los < his) & (bud1[:, None] >= cost)
+    ccounts = child_ok.sum(dim=1)
+    csum2 = torch.cumsum(ccounts, dim=0)
+    base2 = csum2 - ccounts
+    n2 = csum2[-1]
+    overflow = overflow | (n2 > cap)
+
+    parent2 = torch.searchsorted(csum2, slot, right=True).clamp(0, cap - 1)
+    j2 = slot - base2[parent2]
+    # the j2-th valid char of parent2: rank-select over the 4-bit mask,
+    # argmax of an int mask giving the first true index
+    ok_row = child_ok[parent2].to(torch.int32)            # [cap, 4]
+    prefix = torch.cumsum(ok_row, dim=1) - ok_row         # exclusive
+    sel = torch.argmax(((prefix == j2[:, None]) & (ok_row > 0)).to(
+        torch.int32), dim=1)
+    return ApproxState(
+        locus_idx=state.locus_idx[parent][parent2],
+        node=node1[parent2],
+        off=off1[parent2] + 1,
+        lo=los[parent2, sel],
+        hi=his[parent2, sel],
+        budget=bud1[parent2] - cost[parent2, sel],
+        overflow=overflow,
+    ), new_n, n2
+
+
+_APPROX_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                    + [ctypes.c_int] + [ctypes.c_void_p] * 12
+                    + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _check_step_approx(g: GraphArrays, state: ApproxState,
+                       n_used: torch.Tensor, cap: int,
+                       dev: torch.device) -> None:
+    """The graph and the state for traverse_step_approx's kernel:
+    contiguous int32 on `dev`, the state arrays [cap], n_used an int64
+    and overflow a bool 0-d tensor (range_refine4 checks the seeds
+    tables, lo and hi)."""
+    if not 0 < cap < 1 << 31:
+        raise ValueError(f"traverse_step_approx: cap {cap} outside "
+                         f"[1, 2^31)")
+    _build.check_int32("traverse_step_approx", dev, labels=g.labels,
+                       label_offsets=g.label_offsets,
+                       out_indptr=g.out_indptr, out_indices=g.out_indices,
+                       **{f: getattr(state, f) for f in ApproxState._fields
+                          if f != "overflow"})
+    if g.labels.numel() == 0 or g.label_offsets.numel() < 2:
+        raise ValueError("traverse_step_approx: the graph has no labels")
+    if any(getattr(state, f).shape != (cap,) for f in ApproxState._fields
+           if f != "overflow"):
+        raise ValueError(f"traverse_step_approx: the state arrays must be "
+                         f"[{cap}]")
+    for name, x, dtype in (("n_used", n_used, torch.int64),
+                           ("overflow", state.overflow, torch.bool)):
+        if (x.device != dev or x.dtype != dtype or x.shape != ()
+                or not x.is_contiguous()):
+            raise ValueError(f"traverse_step_approx: {name} must be a "
+                             f"contiguous {dtype} 0-d tensor on {dev}")
+
+
+def traverse_step_approx(g: GraphArrays, seeds: SeedsArrays, t: int,
+                         state: ApproxState, n_used, cap: int):
+    """Step t of the mismatch-tolerant traversal: (state, new_n, n2) as
+    `traverse_step_approx_plain` gives them, for `n_used` an int or an
+    int64 0-d tensor. On a CUDA device in two launches: `range_refine4`
+    over the parent state (every graph child inherits its parent's [lo,
+    hi), so the parent's row is the rank the plain step takes at each of
+    its children), then csrc/traverse_step_approx.cu's kernel, which
+    reads n_used and leaves every count on the device (no host sync)."""
+    dev = state.lo.device
+    if dev.type == "cpu":
+        return traverse_step_approx_plain(g, seeds, t, state, n_used, cap)
+    if dev.type != "cuda":
+        raise ValueError(f"traverse_step_approx: unsupported device {dev}")
+    if not isinstance(n_used, torch.Tensor):
+        n_used = torch.full((), n_used, dtype=torch.int64, device=dev)
+    _check_step_approx(g, state, n_used, cap, dev)
+    lo4, hi4 = range_refine4(seeds, t, state.lo, state.hi)
+    out = _launch_step_approx(g, state, lo4, hi4, n_used, cap)
+    traverse_step_approx.launches += 1
+    stats.count("approx-step-launches", 1)
+    return out
+
+
+traverse_step_approx.launches = 0
+
+
+def _launch_step_approx(g: GraphArrays, state: ApproxState, lo4: torch.Tensor,
+                        hi4: torch.Tensor, n_used: torch.Tensor, cap: int):
+    """The kernel of `traverse_step_approx` alone, on checked inputs and
+    the parents' range_refine4 rows (lo4, hi4): (state, new_n, n2)."""
+    dev = state.lo.device
+    out = torch.empty((6, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    scratch = _step_scratch(dev, cap, "psi_traverse_step_approx")
+    _build.launch(
+        "psi_traverse_step_approx", _APPROX_ARGTYPES, dev,
+        g.labels.data_ptr(), g.labels.numel(), g.label_offsets.data_ptr(),
+        g.out_indptr.data_ptr(), g.out_indices.data_ptr(),
+        g.out_indices.numel(), state.locus_idx.data_ptr(),
+        state.node.data_ptr(), state.off.data_ptr(),
+        state.budget.data_ptr(), lo4.data_ptr(), hi4.data_ptr(),
+        n_used.data_ptr(), state.overflow.data_ptr(), out.data_ptr(),
+        counts.data_ptr(), overflow.data_ptr(), scratch.data_ptr(), cap,
+        _build.stream_ptr(dev),
+    )
+    return (ApproxState(*out.unbind(0), overflow=overflow), counts[0],
+            counts[1])
+
+
 def traverse_device_approx(
     g: GraphArrays,
     seeds: SeedsArrays,
@@ -669,59 +830,31 @@ def traverse_device_approx(
 
     Same gather-compacted schedule as `traverse_device`, but the
     character-consumption phase forks each state into up to four
-    children, one per substituted read character (one `range_refine4`
-    launch a step), decrementing a mismatch budget when the read
-    character differs from the graph label. Each (walk, seed) pair is
-    reached by exactly one leaf.
+    children, one per substituted read character, decrementing a
+    mismatch budget when the read character differs from the graph
+    label: one `traverse_step_approx` a step (on the card a range_refine4
+    and one step kernel, every count on the device, so the k steps queue
+    without a host sync). Each (walk, seed) pair is reached by exactly
+    one leaf.
 
     Returns (locus_idx, lo, hi, n_used, overflow) on the device.
     """
     dev = start_nodes.device
-    slot = torch.arange(cap, dtype=torch.int64, device=dev)
-    locus_idx = slot.to(torch.int32)
-    node, off = start_nodes, start_offs
-    lo = torch.zeros(cap, dtype=torch.int32, device=dev)
-    hi = torch.full((cap,), seeds.size, dtype=torch.int32, device=dev)
-    budget = torch.full((cap,), max_mm, dtype=torch.int32, device=dev)
-    chars = torch.arange(4, dtype=torch.int32, device=dev)
+    state = ApproxState(
+        locus_idx=torch.arange(cap, dtype=torch.int32, device=dev),
+        node=start_nodes,
+        off=start_offs,
+        lo=torch.zeros(cap, dtype=torch.int32, device=dev),
+        hi=torch.full((cap,), seeds.size, dtype=torch.int32, device=dev),
+        budget=torch.full((cap,), max_mm, dtype=torch.int32, device=dev),
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+    )
     n_used = n_init
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
     for t in range(k):
-        # phase 1: graph-edge fork/compaction (as the exact traversal)
-        new_n, parent, node1, off1, valid = _fork(g, node, off, n_used, slot,
-                                                  cap)
-        overflow = overflow | (new_n > cap)
-        bud1 = budget[parent]
-
-        # phase 2: character fork, a child per read character c'
-        gc = _label(g, node1, off1)
-        alive1 = valid & (gc < 4)  # 'N' kills
-        los, his = range_refine4(seeds, t, lo[parent], hi[parent])
-        cost = (chars[None, :] != gc.clamp(0, 3)[:, None]).to(torch.int32)
-        child_ok = alive1[:, None] & (los < his) & (bud1[:, None] >= cost)
-        ccounts = child_ok.sum(dim=1)
-        csum2 = torch.cumsum(ccounts, dim=0)
-        base2 = csum2 - ccounts
-        n2 = csum2[-1]
-        overflow = overflow | (n2 > cap)
-
-        parent2 = torch.searchsorted(csum2, slot, right=True).clamp(0, cap - 1)
-        j2 = slot - base2[parent2]
-        # the j2-th valid char of parent2: rank-select over the 4-bit mask,
-        # argmax of an int mask giving the first true index
-        ok_row = child_ok[parent2].to(torch.int32)            # [cap, 4]
-        prefix = torch.cumsum(ok_row, dim=1) - ok_row         # exclusive
-        sel = torch.argmax(((prefix == j2[:, None]) & (ok_row > 0)).to(
-            torch.int32), dim=1)
-        locus_idx = locus_idx[parent][parent2]
-        node = node1[parent2]
-        off = off1[parent2] + 1
-        lo = los[parent2, sel]
-        hi = his[parent2, sel]
-        budget = bud1[parent2] - cost[parent2, sel]
-        n_used = n2
+        state, _, n_used = traverse_step_approx(g, seeds, t, state, n_used,
+                                                cap)
     n_used = torch.as_tensor(n_used, device=dev).to(torch.int32)
-    return locus_idx, lo, hi, n_used, overflow
+    return state.locus_idx, state.lo, state.hi, n_used, state.overflow
 
 
 def traverse_device_packed(

@@ -46,7 +46,8 @@ SORT_ORDER = ["node_id", "node_offset", "read_id", "read_offset",
               "match_len", "gocc"]
 #: kernel wrappers whose launches each process reports
 COUNTED = (("fm_fused", "trie_level"), ("traverse", "traverse_step"),
-           ("traverse", "range_refine4"), ("fm_pallas", "lf_pair"))
+           ("traverse", "range_refine4"), ("traverse", "traverse_step_approx"),
+           ("fm_pallas", "lf_pair"))
 
 
 def _counters() -> dict:

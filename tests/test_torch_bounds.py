@@ -149,3 +149,36 @@ def test_bacterial_lf_steps_replay_the_search():
     found = want_hi > want_lo
     assert torch.equal(lo[found], want_lo[found])
     assert int(found.sum()) > 0
+
+
+@pytest.mark.parametrize("n_used,n2,cap", [(7050, 34, 1 << 18),
+                                           (0, 0, 16), (40, 90, 64)])
+def test_approx_step_work_counts_live_parents_and_survivors(n_used, n2, cap):
+    """traverse_step_approx's bound counts per live parent its 24 bytes
+    of state and its 32-byte lo4 / hi4 row, and 24 bytes per survivor
+    inside the cap; the whole-cap figure writes every slot of the cap."""
+    nbytes, ops, cap_bytes = chip_smoke.approx_step_work(n_used, n2, cap)
+    live = min(n_used, cap)
+    assert nbytes == (24 + 32) * live + 24 * min(n2, cap)
+    assert cap_bytes == (16 + 32) * live + 24 * cap
+    assert ops == 40 * live
+    assert nbytes <= cap_bytes + 8 * live
+
+
+def test_approx_step_inputs_make_the_mm1_shape(tmp_path, monkeypatch):
+    """[approx-step]'s inputs at a small reference: a finder with one
+    substitution a seed, its loci, and a 2,000-read chunk's seeds index
+    that the approximate traversal runs over on the CPU."""
+    from psi_tpu_torch.ops import traverse as trav
+
+    monkeypatch.setattr(chip_smoke, "MM1_REF_LEN", 200_000)
+    finder, index = chip_smoke.approx_step_inputs(str(tmp_path), "cpu")
+    n = len(finder.starting_loci)
+    assert finder.seed_mismatches == 1 and finder.seed_len == 20
+    assert n > 0 and index.size == chip_smoke.MM1_CHUNK * 100 // 20
+    cap = 1 << (4 * n - 1).bit_length()
+    sn, so = finder._get_loci_device(cap)
+    out = trav.traverse_device_approx(
+        finder._get_graph_arrays(), trav.seeds_to_device(index, "cpu"),
+        sn, so, n, finder.seed_len, cap, 1)
+    assert out[0].shape == (cap,) and int(out[3]) >= 0

@@ -735,13 +735,115 @@ def test_traverse_step_kernel_at_edges(dev, case):
                            n_used, cap)
 
 
+def _approx_state(seeds, sn, so, cap, d, max_mm):
+    """traverse_device_approx's state before its first step, on device
+    d."""
+    st = _start_state(seeds, sn, so, cap, d)
+    return trav.ApproxState(
+        *st[:5], budget=torch.full((cap,), max_mm, dtype=torch.int32,
+                                   device=d), overflow=st.overflow)
+
+
+def _approx_launches():
+    return trav.traverse_step_approx.launches, trav.range_refine4.launches
+
+
+@pytest.mark.parametrize("max_mm", [1, 2])
+def test_traverse_step_approx_kernel_matches_plain(dev, max_mm):
+    """traverse_step_approx (range_refine4 over the parents, then one step
+    launch) against traverse_step_approx_plain on the card at every
+    step's inputs of the plain traversal at a cap of 2^13, over the whole
+    cap: the six state arrays, overflow, new_n and n2 are bit-equal. The
+    steps include one that overflows only at the char fork (new_n <= cap
+    < n2), one that overflows at the graph fork (new_n > cap), node ends
+    of outdegree > 1 (more graph children than parents) and the injected
+    'N' killing a child."""
+    graph, index, sn, so = _offpath_case(12)
+    cap = 1 << 13
+    g, seeds = trav.graph_to_device(graph, dev), trav.seeds_to_device(index,
+                                                                       dev)
+    slot = torch.arange(cap, device=dev)
+    state, n_used = _approx_state(seeds, sn, so, cap, dev, max_mm), len(sn)
+    seen = set()
+    for t in range(12):
+        n0 = _approx_launches()
+        got = trav.traverse_step_approx(g, seeds, t, state, n_used, cap)
+        assert _approx_launches() == (n0[0] + 1, n0[1] + 1)
+        want = trav.traverse_step_approx_plain(g, seeds, t, state, n_used,
+                                               cap)
+        _assert_same_step(got, want)
+        _, _, node, off, valid = trav._fork(g, state.node, state.off, n_used,
+                                            slot, cap)
+        if (valid & (trav._label(g, node, off) == 4)).any():
+            seen.add("N")
+        parents, new_n, n2 = min(int(n_used), cap), int(want[1]), int(want[2])
+        if new_n > parents:
+            seen.add("fork")
+        if new_n > cap:
+            seen.add("graph overflow")
+        elif n2 > cap:
+            seen.add("char overflow")
+        state, _, n_used = want
+    assert seen == {"N", "fork", "graph overflow", "char overflow"}
+    assert 0 < int(n_used) < cap
+
+
+@pytest.mark.parametrize("case", ["empty", "cap16", "graph_overflow"])
+def test_traverse_step_approx_kernel_at_edges(dev, case):
+    """traverse_step_approx against its plain step over the whole cap at
+    step 4 of a one-mismatch traversal (at 2^13 slots its parents fork at
+    node ends and fit), its overflow flag cleared, cut to a cap where the
+    frontier is empty (n_used = 0: every slot the padding record), to 16
+    slots (one partial tile, n_used past the cap, survivors and padding),
+    or between the parents and their graph children (children past the
+    cap dropped); a cap of 0, a wrong dtype and a wrong budget shape are
+    refused."""
+    graph, index, sn, so = _offpath_case(12)
+    g, seeds = trav.graph_to_device(graph, dev), trav.seeds_to_device(index,
+                                                                       dev)
+    big = 1 << 13
+    state, n_used = _approx_state(seeds, sn, so, big, dev, 1), len(sn)
+    for t in range(4):
+        state, _, n_used = trav.traverse_step_approx_plain(
+            g, seeds, t, state, n_used, big)
+    _, new_n, _ = trav.traverse_step_approx_plain(g, seeds, 4, state, n_used,
+                                                  big)
+    n_used, new_n = int(n_used), int(new_n)
+    assert n_used + 8 < new_n < big
+    cap = {"empty": big, "cap16": 16, "graph_overflow": new_n - 5}[case]
+    if case == "empty":
+        n_used = 0
+    cut = state._replace(
+        overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        **{f: getattr(state, f)[:cap].contiguous()
+           for f in trav.ApproxState._fields[:6]})
+    got = trav.traverse_step_approx(g, seeds, 4, cut, n_used, cap)
+    want = trav.traverse_step_approx_plain(g, seeds, 4, cut, n_used, cap)
+    _assert_same_step(got, want)
+    if case == "empty":
+        assert int(got[1]) == int(got[2]) == 0 and not got[0].overflow
+    elif case == "cap16":
+        assert 0 < int(got[2]) < cap
+    else:
+        assert int(got[1]) > cap and got[0].overflow
+    with pytest.raises(ValueError, match="cap"):
+        trav.traverse_step_approx(g, seeds, 4, cut, n_used, 0)
+    with pytest.raises(ValueError, match="int32"):
+        trav.traverse_step_approx(g, seeds, 4, cut._replace(
+            budget=cut.budget.long()), n_used, cap)
+    with pytest.raises(ValueError, match=r"must be \["):
+        trav.traverse_step_approx(g, seeds, 4, cut._replace(
+            budget=cut.budget[:-1]), n_used, cap)
+
+
 @pytest.mark.parametrize("k", [12, 32])
 def test_traversals_cuda_match_cpu(dev, k):
-    """traverse_device (its k steps under sync debug mode "error": no
-    host sync) and traverse_device_approx (m = 1) on the card equal their
-    runs on the CPU over the whole cap, with k traverse_step and k
-    range_refine4 launches; the device WalkTree probe on the
-    card equals the host probe and the exact traversal's survivors."""
+    """traverse_device and traverse_device_approx (m = 1), the k steps of
+    each under sync debug mode "error" (no host sync), on the card equal
+    their runs on the CPU over the whole cap, with k traverse_step, k
+    traverse_step_approx and k range_refine4 launches; the device
+    WalkTree probe on the card equals the host probe and the exact
+    traversal's survivors."""
     graph, index, sn, so = _offpath_case(k)
     cap = 1 << 13
     snp, sop = (np.resize(np.pad(a, (0, cap - len(a))), cap) for a in (sn, so))
@@ -750,7 +852,7 @@ def test_traversals_cuda_match_cpu(dev, k):
         g, sa = trav.graph_to_device(graph, d), trav.seeds_to_device(index, d)
         args = (g, sa, torch.from_numpy(snp).to(d),
                 torch.from_numpy(sop).to(d), len(sn), k, cap)
-        n0 = trav.traverse_step.launches, trav.range_refine4.launches
+        n0 = trav.traverse_step.launches, *_approx_launches()
         if d.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -760,11 +862,11 @@ def test_traversals_cuda_match_cpu(dev, k):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         launched = (trav.traverse_step.launches - n0[0],
-                    trav.range_refine4.launches - n0[1])
+                    *(a - b for a, b in zip(_approx_launches(), n0[1:])))
         out[d.type] = ([a.cpu().numpy() for a in exact],
                        [a.cpu().numpy() for a in approx], launched)
     (ex, ap, launched), (cex, cap_, claunched) = out["cuda"], out["cpu"]
-    assert launched == (k, k) and claunched == (0, 0)
+    assert launched == (k, k, k) and claunched == (0, 0, 0)
     for a, b in zip((*ex, *ap), (*cex, *cap_)):
         np.testing.assert_array_equal(a, b)
     nu = int(ex[3])
@@ -784,7 +886,8 @@ def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
     """seeds_all_arrays on the card equals it on the CPU on the WalkTree
     route, the device traversal (PSI_TRAV_CACHE=0) and the mismatch
     route (m = 1): the exact traversal launched traverse_step k times,
-    the mismatch route range_refine4 k times per attempt."""
+    the mismatch route range_refine4 k times per attempt and
+    traverse_step_approx as often, and no traverse_step."""
     graph = make_pangenome_graph(30_000, 0.02, seed=8)
     itr = HaplotyperRandomIter(graph, seed=12)
     hap = Path(graph)
@@ -807,18 +910,18 @@ def test_offpath_routes_cuda_match_cpu(dev, monkeypatch):
             finder.seed_mismatches = mm
             seeds = finder.get_seeds(recs)
             index = finder.index_reads(seeds)
-            n0 = trav.traverse_step.launches, trav.range_refine4.launches
+            n0 = trav.traverse_step.launches, *_approx_launches()
             on, off = finder.seeds_all_arrays(seeds, index, split=True)
             launched = (trav.traverse_step.launches - n0[0],
-                        trav.range_refine4.launches - n0[1])
+                        *(a - b for a, b in zip(_approx_launches(), n0[1:])))
             rows[device] = [np.sort(a, order=list(a.dtype.names))
                             for a in (on, off)]
             if device == "cuda":
                 if mm:
                     assert launched[0] == 0 and launched[1] % 20 == 0
-                    assert launched[1] > 0
+                    assert launched[1] == launched[2] > 0
                 else:
-                    assert launched == (20 if cache == "0" else 0, 0)
+                    assert launched == (20 if cache == "0" else 0, 0, 0)
         assert len(rows["cuda"][1]) > 0
         for a, b in zip(rows["cuda"], rows["cpu"]):
             assert a.tobytes() == b.tobytes()
@@ -1208,8 +1311,9 @@ def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
     """One chunk with seed_mismatches=1 on the card: the exact route's
     spans time the Hamming ball and the approximate traversal, the card
     planned every key of the ball (plan-ball-keys = plan-device-keys),
-    neither ball sorted a row (no ball-dedup-rows), and approx-slots is k
-    x the cap of every attempt of the approximate traversal."""
+    neither ball sorted a row (no ball-dedup-rows), approx-slots is k x
+    the cap of every attempt of the approximate traversal, and
+    approx-step-launches k an attempt."""
     from psi_tpu_torch import stats
     from psi_tpu_torch.stats import SeedFinderStats, Timer
 
@@ -1226,4 +1330,5 @@ def test_mismatch_chunk_spans_and_counters_on_the_card(dev):
     cap, attempts = (finder.last_traversal[n] for n in ("cap", "attempts"))
     assert counts["approx-slots"] == 20 * sum(cap >> i
                                               for i in range(attempts))
+    assert counts["approx-step-launches"] == 20 * attempts
     Timer.reset_all()

@@ -295,9 +295,10 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 
 def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
-    """Every csrc/*.cu (traverse_step.cu, dindex_probe.cu and
-    trie_schedule.cu too) is compiled for sm_90a by its own nvcc process,
-    then linked once; the same sources do not rebuild."""
+    """Every csrc/*.cu (traverse_step.cu, traverse_step_approx.cu,
+    dindex_probe.cu and trie_schedule.cu too) is compiled for sm_90a by
+    its own nvcc process, then linked once; the same sources do not
+    rebuild."""
     # a stand-in nvcc that logs its arguments and writes its -o target
     calls = _isolated_build(monkeypatch, tmp_path, (
         f'echo "$@" >> {tmp_path / "calls"}\n'
@@ -310,7 +311,8 @@ def test_build_targets_sm90a_once_per_source_hash(monkeypatch, tmp_path):
     lines = calls.read_text().splitlines()
     sources = ("trie_level.cu", "rank4_pair.cu", "compact.cu", "rank4.cu",
                "rank.cu", "occ_gather.cu", "range_refine.cu", "status.cu",
-               "traverse_step.cu", "dindex_probe.cu", "trie_schedule.cu")
+               "traverse_step.cu", "traverse_step_approx.cu",
+               "dindex_probe.cu", "trie_schedule.cu")
     # one compile per source, all for sm_90a, then one link
     assert len(lines) == len(sources) + 1
     for line in lines:
@@ -365,6 +367,9 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     graph = trav.GraphArrays(t, t, t, t, 1)
     with pytest.raises(ValueError, match="unsupported device"):
         trav.traverse_step(graph, seeds, 0, state, 1, 8192)
+    approx = trav.ApproxState(t, t, t, t, t, t, t[0].bool())
+    with pytest.raises(ValueError, match="unsupported device"):
+        trav.traverse_step_approx(graph, seeds, 0, approx, 1, 8192)
     tabs = dindex_probe.ProbeTables(t.long(), t, t, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
         dindex_probe.probe_bisect(tabs, t.long(), t, t, t, t)

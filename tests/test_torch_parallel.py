@@ -223,4 +223,4 @@ def test_launch_enters_the_device(monkeypatch):
                     assert ast.unparse(node.args[2]) == "dev", path
                     src = ast.unparse(fn)
                     assert "dev = " in src and ".device" in src, fn.name
-    assert sites == 12
+    assert sites == 13

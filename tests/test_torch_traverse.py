@@ -361,6 +361,115 @@ def test_traverse_device_approx_matches_psi_tpu(max_mm):
     assert got[3] > 0 and got[4]
 
 
+def _approx_step_model(g, seeds, t, state, n_used, cap):
+    """csrc/traverse_step_approx.cu's contract, parent by parent in
+    NumPy: range_refine4 over the parent state, each parent's graph
+    children in edge order, a survivor per (graph child, char) in char
+    order, survivors past the cap dropped, and every slot from n2 on the
+    record of graph child slot cap - 1 with char 0. Returns (fields [6,
+    cap], new_n, n2, overflow)."""
+    lo4, hi4 = (a.numpy() for a in trav.range_refine4_plain(
+        seeds, t, state.lo, state.hi))
+    labels, loff, indptr, indices = (a.numpy().astype(np.int64) for a in (
+        g.labels, g.label_offsets, g.out_indptr, g.out_indices))
+    locus, node, off, budget = (getattr(state, f).numpy().astype(np.int64)
+                                for f in ("locus_idx", "node", "off",
+                                          "budget"))
+    n_used = min(max(int(n_used), 0), cap)
+
+    def parent(s, in_use):
+        sn = max(node[s], 1)
+        at_end = in_use and off[s] >= loff[sn] - loff[sn - 1]
+        count = (indptr[sn] - indptr[sn - 1] if at_end else 1) if in_use \
+            else 0
+        return at_end, count
+
+    def child(s, at_end, j):
+        nb = 0
+        if len(indices):
+            e = indptr[max(node[s], 1) - 1] + j
+            nb = indices[min(max(e, 0), len(indices) - 1)]
+        cn, co = (nb, 0) if at_end else (node[s], off[s])
+        c = labels[min(max(loff[max(cn, 1) - 1] + co, 0), len(labels) - 1)]
+        return cn, co, c
+
+    def record(s, cn, co, c, r):
+        return (locus[s], cn, co + 1, lo4[s, r], hi4[s, r],
+                budget[s] - (r != min(max(c, 0), 3)))
+
+    out = np.zeros((6, cap), dtype=np.int64)
+    new_n = n2 = 0
+    pad = None
+    for s in range(n_used):
+        at_end, count = parent(s, True)
+        for j in range(min(count, max(0, cap - new_n))):
+            cn, co, c = child(s, at_end, j)
+            if new_n + j == cap - 1:
+                pad = record(s, cn, co, c, 0)
+            for r in range(4):
+                if (c < 4 and lo4[s, r] < hi4[s, r]
+                        and budget[s] >= (r != min(max(c, 0), 3))):
+                    if n2 < cap:
+                        out[:, n2] = record(s, cn, co, c, r)
+                    n2 += 1
+        new_n += count
+    if new_n < cap:
+        s = cap - 1
+        at_end, count = parent(s, s < n_used)
+        pad = record(s, *child(s, at_end, s - (new_n - count)), 0)
+    out[:, n2:] = np.asarray(pad)[:, None]
+    overflow = bool(state.overflow) or new_n > cap or n2 > cap
+    return out, new_n, n2, overflow
+
+
+@pytest.mark.parametrize("max_mm", [1, 2])
+def test_traverse_step_approx_plain_loop_matches_device_approx(max_mm):
+    """k steps of traverse_step_approx_plain chained from the start equal
+    traverse_device_approx over the whole cap, and each step equals the
+    step kernel's contract (`_approx_step_model`: the rank over the parent
+    state, the survivors in (graph child, char) order, the padding
+    record) whole cap, counts and overflow included, through the cap's
+    overflow; on the CPU route no step kernel launches and the
+    approx-step-launches counter stays at 0."""
+    from psi_tpu_torch import stats
+
+    graph, index, loci, sn, so = _graph_reads(3, 12)
+    cap, k = 1 << 13, 12
+    snp, sop = (torch.from_numpy(a) for a in _starts(sn, so, cap))
+    g, sa = trav.graph_to_device(graph, "cpu"), trav.seeds_to_device(
+        index, "cpu")
+    n0 = trav.traverse_step_approx.launches, trav.range_refine4.launches
+    with stats.timeit_ts("seeds-off-path", chunk=9_122 + max_mm):
+        got = trav.traverse_device_approx(g, sa, snp, sop, len(sn), k, cap,
+                                          max_mm)
+    _, counters = stats.chunk_totals(9_122 + max_mm)
+    assert counters.get("approx-step-launches", 0) == 0
+    assert (trav.traverse_step_approx.launches,
+            trav.range_refine4.launches) == n0
+    state = trav.ApproxState(
+        locus_idx=torch.arange(cap, dtype=torch.int32), node=snp, off=sop,
+        lo=torch.zeros(cap, dtype=torch.int32),
+        hi=torch.full((cap,), index.size, dtype=torch.int32),
+        budget=torch.full((cap,), max_mm, dtype=torch.int32),
+        overflow=torch.zeros((), dtype=torch.bool))
+    n_used, overflowed = len(sn), []
+    for t in range(k):
+        want = _approx_step_model(g, sa, t, state, n_used, cap)
+        state, new_n, n_used = trav.traverse_step_approx_plain(
+            g, sa, t, state, n_used, cap)
+        fields = np.stack([getattr(state, f).numpy() for f in
+                           trav.ApproxState._fields[:6]])
+        assert fields.dtype == np.int32 and n_used.dtype == torch.int64
+        np.testing.assert_array_equal(fields, want[0])
+        assert (int(new_n), int(n_used), bool(state.overflow)) == want[1:]
+        overflowed.append(bool(state.overflow))
+    assert any(overflowed) and not overflowed[0] and int(n_used) > 0
+    for a, b in zip(got, (state.locus_idx, state.lo, state.hi,
+                          n_used.to(torch.int32), state.overflow),
+                    strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def _sorted_hits(raw):
     a = np.array(raw, dtype=np.int64).reshape(-1, 5)
     return a[np.lexsort(a.T[::-1])]
